@@ -1,7 +1,9 @@
 """The port's align path as a whole (wfmash_tpu_torch: SegmentedEngine,
-run_alignment, CLI) against the JAX package under the same composition:
-SegmentedEngine over the segment tiers, the native HostWfaEngine for
-escalations (the composition of tests/test_segmented.py).
+run_alignment, CLI) against the JAX package under the same composition,
+the reference's on a local accelerator: SegmentedEngine over the segment
+tiers with the exact sweep engine for escalations (JaxWfaEngine in Pallas
+interpret mode there, ExactWfaEngine here), which shares the tiers for
+its leaves.
 
 The reference runs its Pallas kernel in interpret mode, with the first
 two tier envelopes (K, smax, lseg) of its default table at small launch
@@ -26,7 +28,7 @@ import torch
 from wfmash_tpu.align import engine as ref_engine
 from wfmash_tpu.align import segmented as S
 from wfmash_tpu.align import wfa_pallas_seg as R
-from wfmash_tpu.align.biwfa import HostWfaEngine
+from wfmash_tpu.align.wfa_jax import JaxWfaEngine
 from wfmash_tpu.align.wfa_np import EndsFree, Penalties
 from wfmash_tpu.cli import parse_args
 from wfmash_tpu.runner import run_mapping
@@ -35,6 +37,7 @@ from wfmash_tpu_torch.align import engine as port_engine
 from wfmash_tpu_torch.align import segmented as port_segmented
 from wfmash_tpu_torch.align import wfa_seg
 from wfmash_tpu_torch.align.segmented import SegmentedEngine
+from wfmash_tpu_torch.align.wfa_exact import ExactWfaEngine
 from wfmash_tpu_torch.device import resolve
 
 from util import mutate, random_dna, revcomp, write_fasta
@@ -56,7 +59,7 @@ def _ref_solver(p, n_tiers=5):
 
 
 def _ref_engine(p, threads=1, solver=None):
-    exact = HostWfaEngine(p)
+    exact = JaxWfaEngine(p, backend="pallas-interpret")
     exact.threads = threads
     return S.SegmentedEngine(p, exact, interpret=True,
                              solver=solver or _ref_solver(p))
@@ -92,9 +95,12 @@ def test_segmented_engine_matches_reference():
     ref_solver = _ref_solver(PATCH, n_tiers=2)
     ref = _ref_engine(PATCH, solver=ref_solver)
     port = SegmentedEngine(
-        PATCH, HostWfaEngine(PATCH), CPU,
+        PATCH, ExactWfaEngine.from_reference(ref.exact, CPU), CPU,
         solver=wfa_seg.TieredSegmentSolver.from_reference(ref_solver, CPU))
     assert not port._host_smalls_ok()
+    assert port.exact.seg_solver is port.solver
+    assert (port.exact.HOST_LEN, port.exact.banded_leaves) == (
+        ref.exact.HOST_LEN, ref.exact.banded_leaves) == (1900, True)
     got_ref = ref.align_batch(jobs)
     got = port.align_batch(jobs)
     assert got == got_ref
@@ -102,6 +108,17 @@ def test_segmented_engine_matches_reference():
     assert port.inversions == ref.inversions and port.inversions
     assert port.stats == ref.stats
     assert port.stats["segments"] > 20
+
+
+@pytest.fixture(autouse=True)
+def _engine_env(monkeypatch):
+    """These tests choose their engines themselves: other test modules
+    set the engine switches in os.environ when they are imported, and
+    every worker imports every module. They run the card's default
+    composition on the CPU, which takes WFMASH_TPU_SEGMENTED=1 there
+    (auto on the CPU device is the native host engine)."""
+    monkeypatch.delenv("WFMASH_TPU_WFA_ENGINE", raising=False)
+    monkeypatch.setenv("WFMASH_TPU_SEGMENTED", "1")
 
 
 @pytest.fixture(scope="module")

@@ -39,10 +39,9 @@ import time
 import numpy as np
 import torch
 
-from wfmash_tpu.align.wfa_np import Penalties
-from wfmash_tpu.utils import perf
-
 from .. import _build
+from ..utils import perf
+from .wfa_np import Penalties
 
 NEG_I = -(1 << 28)
 NEG16 = -2048          # int16 history sentinel for "unreachable"
