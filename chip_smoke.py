@@ -11,8 +11,16 @@ Phases (any failure exits non-zero; nothing is caught):
 4. the tiered solver on the card: every `ok` CIGAR must equal wfa_np's;
 5. per span-ladder step K = 256..4096, one seeded batch (both split axes,
    some problems solved before the sweep) and one batch built to touch
-   the band edge: the sweep kernel and its plain PyTorch version on the
-   card must agree exactly on all five outputs;
+   the band edge, then one batch of 65534 bp problems (the 16-bit edge of
+   the ring words), one cut short, one under a second penalty set, one
+   under penalties that send the shape to the global-ring kernel, one
+   along the outermost block boundaries of each cluster size and one of
+   long near-identical blocks (`sweep_batches`): the sweep
+   kernel and its plain PyTorch version on the card must agree exactly on
+   all five outputs, each line says which kernel the shape took
+   (wfa_sweep.kernel_choice) and how many problems the card holds at
+   once, and the ladder's steps must take the shared-memory kernel as one
+   block (K <= 512) or a cluster of 2, 4, 8;
 6. ExactWfaEngine.align_batch on seeded 2-40 kb blocks: every CIGAR
    replays and scores the native exact WFA's score; the sweep kernel must
    have launched;
@@ -43,6 +51,7 @@ call computes either function: `library_ms` is null.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -94,7 +103,8 @@ SEG_OPS_PER_LANE = 10 + 3 + 4 + 9 + 14
 #       anchor unset, two compares, two ANDs, select
 #    3  finish: end diagonal, offset >= qlen, AND
 SWEEP_OPS_PER_LANE = 52 + 3 + 5 + 12 + 10 + 6 + 3
-# ring words the sweep kernel loads (22) and stores (14) per lane and level
+# 32-bit ring words the global-ring sweep kernel loads (22) and stores (14)
+# per lane and level (the shared-memory kernel has no such traffic)
 SWEEP_RING_BYTES_PER_LANE = 36 * 4
 
 
@@ -382,6 +392,12 @@ SWEEP_STEPS = ((256, 1000, 2000), (512, 2000, 4000), (1024, 4000, 8000),
                (2048, 8000, 16000), (4096, 16000, 48000))
 SWEEP_BATCH = 128
 SWEEP_MAX_S = 30000
+SWEEP_CUT_S = 1400     # max_s of the batch that is cut short
+# the kernel each batch must take: blocks of the cluster that holds the
+# rings in shared memory, 0 for the global-ring kernel
+SWEEP_KERNELS = {"K=256": 1, "K=512": 1, "K=1024": 2, "K=2048": 4,
+                 "K=4096": 8, "deep-ring K=512": 0, "boundary K=1024": 2,
+                 "boundary K=2048": 4, "boundary K=4096": 8}
 
 
 def _sweep_inputs(pairs, K, flip_axis=()):
@@ -431,12 +447,80 @@ def _edge_pairs(rng, n):
     return out
 
 
-def sweep_phase(p, dev, rng):
-    """Sweep kernel vs plain version on the card, one batch per ladder
-    step and one band-edge batch: all five outputs equal, exactly."""
-    import torch
+def _longest_pairs(rng, n):
+    """Queries of 65534 bases, the longest the sweep takes, against targets
+    with a few substitutions, one deletion of 5-12 bases in the middle and
+    a shorter run of extra bases at the end: few levels, and M cells at
+    offset 65534 beside the end diagonal whose insertion cells pass what
+    a 16-bit ring word holds."""
+    out = []
+    for _ in range(n):
+        q = rng.integers(0, 4, 65534).astype(np.uint8)
+        t = q.copy()
+        for pos in rng.integers(100, 65000, int(rng.integers(2, 6))):
+            t[pos] = (t[pos] + rng.integers(1, 4)) % 4
+        cut = int(rng.integers(5, 13))
+        a = int(rng.integers(20000, 40000))
+        tail = rng.integers(0, 4, int(rng.integers(3, cut))).astype(np.uint8)
+        t = np.concatenate([t[:a], t[a + cut:], tail])
+        out.append((ACGT[q].tobytes(), ACGT[t].tobytes()))
+    return out
 
-    from wfmash_tpu_torch.align import wfa_sweep
+
+# penalties whose rings exceed a block's shared memory at 512 lanes
+# ((6 * 66 + 32 * 3) * 512 B = 246 KiB): the global-ring kernel's shape
+DEEP_RING_PENALTIES = (5, 8, 2, 64, 1)
+WFLIGN_PENALTIES = (2, 3, 1, 3, 1)
+
+
+def _boundary_pairs(rng, n, K):
+    """Problems whose paths run along the first or the last block boundary
+    of a K-lane cluster (lanes 511/512 and K - 513/K - 512), on alternate
+    sides: one gap of about K / 2 - 512 bases carries the path there from
+    the seed lane K / 2 (at K = 1024 the seed lane is that boundary), and
+    SNPs and 1-3 base indels of both directions then take it to and fro
+    across the boundary."""
+    out = []
+    for i in range(n):
+        q = rng.integers(0, 4, int(rng.integers(3000, 5000))).astype(np.uint8)
+        t = q.copy()
+        s = rng.random(len(t)) < 0.02
+        t[s] = (t[s] + rng.integers(1, 4, int(s.sum()))) % 4
+        parts, at = [], 0
+        for pos in np.nonzero(rng.random(len(t)) < 0.006)[0]:
+            if pos < at:
+                continue
+            n_gap = int(rng.integers(1, 4))
+            parts.append(t[at:pos])
+            if rng.random() < 0.5:                      # extra target bases
+                parts.append(rng.integers(0, 4, n_gap).astype(np.uint8))
+                at = pos
+            else:                                       # target bases lost
+                at = pos + n_gap
+        parts.append(t[at:])
+        t = np.concatenate(parts)
+        shift = K // 2 - 512 + int(rng.integers(-3, 4))
+        a = int(rng.integers(300, 600))
+        if shift > 0 and i % 2:         # towards lane K - 512
+            t = np.concatenate([t[:a], t[a + shift:]])
+        elif shift > 0:                 # towards lane 512
+            t = np.concatenate([t[:a], rng.integers(0, 4, shift)
+                                .astype(np.uint8), t[a:]])
+        out.append((ACGT[q].tobytes(), ACGT[t].tobytes()))
+    return out
+
+
+def sweep_batches(rng, p):
+    """The batches of `sweep_phase` as (name, K, pairs, rows that split the
+    shorter axis, penalties, max_s), and how many of them are the ladder's
+    (one per ladder step and the band-edge batch, under the align path's
+    penalties p: the six timed since the kernel was first ported). Then
+    one batch each at the 16-bit length limit, cut short at a level that
+    is no multiple of a cluster's meeting interval, under a second penalty
+    set, under penalties that send the shape to the global-ring kernel,
+    along a cluster's outermost block boundaries at each cluster size, and
+    of long near-identical blocks at the first ladder step."""
+    from wfmash_tpu_torch.align.wfa_np import Penalties
 
     batches = []
     for K, lo, hi in SWEEP_STEPS:
@@ -444,15 +528,57 @@ def sweep_phase(p, dev, rng):
                  for _ in range(SWEEP_BATCH)]
         for i in (5, 77):                       # solved before the sweep
             pairs[i] = (pairs[i][0], pairs[i][0])
-        batches.append((f"K={K}", K, pairs, range(0, SWEEP_BATCH, 3)))
-    batches.append(("edge K=512", 512, _edge_pairs(rng, 8), (1, 4)))
+        batches.append((f"K={K}", K, pairs, range(0, SWEEP_BATCH, 3), p,
+                        SWEEP_MAX_S))
+    batches.append(("edge K=512", 512, _edge_pairs(rng, 8), (1, 4), p,
+                    SWEEP_MAX_S))
+    n_ladder = len(batches)
+    batches.append(("65534 bp K=256", 256, _longest_pairs(rng, 8), (1, 4, 6),
+                    p, SWEEP_MAX_S))
+    # some problems finish before the cut, the others report unfinished
+    name, K, pairs, flip, _, _ = batches[2]
+    batches.append((f"cut at {SWEEP_CUT_S} {name}", K, pairs[:64],
+                    range(0, 64, 3), p, SWEEP_CUT_S))
+    K, lo, hi = SWEEP_STEPS[1]
+    for name, pen in (("wflign", WFLIGN_PENALTIES),
+                      ("deep-ring", DEEP_RING_PENALTIES)):
+        pairs = [_pair(rng, lo, hi, float(rng.uniform(0.02, 0.05)), 0.002)
+                 for _ in range(SWEEP_BATCH // 2)]
+        batches.append((f"{name} K={K}", K, pairs,
+                        range(0, SWEEP_BATCH // 2, 3), Penalties(*pen),
+                        SWEEP_MAX_S))
+    for K in (1024, 2048, 4096):
+        batches.append((f"boundary K={K}", K, _boundary_pairs(rng, 32, K),
+                        range(0, 32, 3), p, SWEEP_MAX_S))
+    pairs = [_pair(rng, 30000, 48000, 0.001, 0.0001)
+             for _ in range(SWEEP_BATCH)]
+    batches.append(("40 kb 0.1% K=256", 256, pairs,
+                    range(0, SWEEP_BATCH, 3), p, SWEEP_MAX_S))
+    return batches, n_ladder
+
+
+def sweep_phase(p, dev, rng):
+    """Sweep kernel vs plain version on the card, on every batch of
+    `sweep_batches`. All five outputs equal, exactly. At shapes that take
+    the shared-memory kernel the global-ring kernel is launched on the same
+    inputs too, for its time beside the other's on this card, and held to
+    the same outputs."""
+    import torch
+
+    from wfmash_tpu_torch.align import wfa_sweep
+
+    batches, n_ladder = sweep_batches(rng, p)
     rows = []
-    for name, K, pairs, flip in batches:
+    for name, K, pairs, flip, pen, max_s in batches:
         d = _sweep_inputs(pairs, K, flip)
         ten = {k: torch.from_numpy(v).to(dev) for k, v in d.items()
                if k != "done0"}
-        kw = dict(penalties=p, K=K, max_s=SWEEP_MAX_S)
+        kw = dict(penalties=pen, K=K, max_s=max_s)
+        cluster = wfa_sweep.kernel_choice(pen, K)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         _cuda_ms(lambda: wfa_sweep.run_sweep(**ten, **kw), 1)  # first launch
+        scratch = torch.cuda.max_memory_allocated() - base
         k_ms, kern = _cuda_ms(lambda: wfa_sweep.run_sweep(**ten, **kw), 3)
         p_ms, plain = _cuda_ms(lambda: wfa_sweep.sweep_torch(**ten, **kw), 1)
         kern, plain = kern.cpu().numpy(), plain.cpu().numpy()
@@ -466,6 +592,7 @@ def sweep_phase(p, dev, rng):
             raise RuntimeError(f"sweep {name}: kernel and plain version "
                                "count different wavefront lanes")
         n_axis_q = int(d["par"][keep, 2].sum())
+        deepest = int(kern[:, 4].max())
         # the least the card could take: every input read and the term
         # rows written once (the rings are scratch and do not count); the
         # recurrences' 32-bit operations on the swept lanes
@@ -473,30 +600,67 @@ def sweep_phase(p, dev, rng):
             + kern.nbytes
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = lanes * SWEEP_OPS_PER_LANE / INT_OPS_PER_S * 1e3
-        log(f"[sweep {name}] B={len(pairs)} L={d['query'].shape[1]} "
+        if cluster:
+            took = (f"{wfa_sweep.kernel_name(cluster)} "
+                    f"({wfa_sweep.active_clusters(pen, K)} problems at once, "
+                    f"{scratch} B of scratch and outputs allocated)")
+            g_ms, glob = _cuda_ms(lambda: wfa_sweep._launch(
+                *ten.values(), pen, K, max_s, 0), 3)
+            n_glob = int((glob.cpu().numpy() != kern).any(1).sum())
+            if n_glob:
+                raise RuntimeError(f"sweep {name}: the global-ring kernel "
+                                   f"differs on {n_glob} rows")
+            ring = (f"global-ring kernel {g_ms:.3f} ms on the same inputs "
+                    "(equal outputs)")
+        else:
+            took = (f"{wfa_sweep.kernel_name(cluster)} ({scratch} B of "
+                    "scratch and outputs allocated)")
+            g_ms = None
+            ring = (f"ring traffic "
+                    f"{lanes * SWEEP_RING_BYTES_PER_LANE / k_ms / 1e9:.2f} "
+                    "TB/s")
+        log(f"[sweep {name}] {took}; penalties {dataclasses.astuple(pen)} "
+            f"B={len(pairs)} L={d['query'].shape[1]} max_s={max_s} "
             f"lengths {int(d['par'][:, 0].min())}-"
             f"{int(d['par'][:, 0].max())} done0={int(d['done0'].sum())} "
             f"query-axis={n_axis_q} finished={int(kern[keep, 0].sum())} "
             f"clipped={int(kern[:, 3].sum())} max_score="
             f"{int(kern[:, 1].max())} levels={levels} lanes={lanes} kernel "
             f"{k_ms:.3f} ms ({lanes * 5 / k_ms / 1e6:.2f} Gcells/s, "
-            f"{int(kern[:, 4].max()) and k_ms * 1e3 / int(kern[:, 4].max()):.2f}"
-            f" us a level of the deepest problem, ring traffic "
-            f"{lanes * SWEEP_RING_BYTES_PER_LANE / k_ms / 1e9:.2f} TB/s; "
+            f"{deepest and k_ms * 1e3 / deepest:.2f}"
+            f" us a level of the deepest problem, {ring}; "
             f"bound {_bound(bytes_ms, ops_ms)}), plain "
             f"on the card {p_ms:.1f} ms (rows differing {n_bad}, "
             f"max_abs_err {int(diff.max())})")
         if n_bad:
             raise RuntimeError(f"sweep {name}: kernel and plain version "
                                f"disagree on {n_bad} rows")
-        if not kern[keep, 0].all() or (kern[keep, 2] == -1).any():
-            raise RuntimeError(f"sweep {name}: unfinished problems or "
-                               "missing anchors")
+        fin = kern[:, 0] != 0
+        if max_s == SWEEP_MAX_S and not fin[keep].all():
+            raise RuntimeError(f"sweep {name}: unfinished problems")
+        if max_s != SWEEP_MAX_S and (fin[keep].all() or not fin.any()):
+            raise RuntimeError(f"sweep {name}: the cut at level {max_s} "
+                               "does not split the batch")
+        if (kern[fin, 2] == -1).any():
+            raise RuntimeError(f"sweep {name}: missing anchors")
         if name.startswith("edge") and not kern[:, 3].all():
             raise RuntimeError("the band-edge batch did not touch the edge")
+        want = SWEEP_KERNELS.get(name)
+        if want is not None and cluster != want:
+            raise RuntimeError(f"sweep {name}: took "
+                               f"{wfa_sweep.kernel_name(cluster)}")
         rows.append(dict(name=name, ms=k_ms, plain_ms=p_ms,
                          err=int(diff.max()), bytes_ms=bytes_ms,
-                         ops_ms=ops_ms))
+                         ops_ms=ops_ms, global_ms=g_ms))
+    def total(key, some):
+        return sum(r[key] for r in some)
+
+    first = rows[:n_ladder]
+    log(f"[sweep] the ladder's {n_ladder} batches: kernel "
+        f"{total('ms', first):.3f} ms, global-ring kernel "
+        f"{total('global_ms', first):.3f} ms, bound "
+        f"{max(total('bytes_ms', first), total('ops_ms', first)):.3f} ms; "
+        f"all {len(rows)} batches: kernel {total('ms', rows):.3f} ms")
     return rows
 
 

@@ -283,3 +283,44 @@ def test_run_seg_rejects_what_it_cannot_run():
         T.run_seg(buf, **dict(kw, K=2048))
     runs, out = T.run_seg(buf, **kw)            # all-padding rows finish at 0
     assert (out[:, 0] == 1).all() and (out[:, 4] == 159).all()
+
+
+@pytest.mark.parametrize("pen", [PATCH, WFLIGN], ids=["patch", "wflign"])
+def test_run_seg_deep_scores_and_level_zero(pen):
+    """Scores several times the deepest lag of the recurrence (the sweep's
+    lag window wraps around more than once), a long gap that takes the
+    second gap piece, and rows that finish at level 0, in one chunk of a
+    deep, narrow launch shape: run_seg equals the Pallas kernel byte for
+    byte (term col 8 aside)."""
+    rng = np.random.default_rng(26)
+    deep = dict(PB=4, K=64, smax=128, lseg=256, groups=2)
+    s = random_dna(rng, 220)
+    q6, t6 = _snps(rng, 230, 6)
+    jobs = [(*_snps(rng, 200, 16), None),          # 16 mismatches
+            (s, s, None),                           # done at level 0
+            (q6, t6[:100] + t6[120:], None),        # 20 bp gap + mismatches
+            (*_snps(rng, 240, 21), None),           # 21 mismatches
+            (s[:90], s[:90], EndsFree(target_end=90, query_end=90)),
+            (*_snps(rng, 150, 9), None)]
+    sol = T.SegmentSolver(pen, "cpu", **deep)
+    assert all(sol.accepts(len(q), len(t), ef) for q, t, ef in jobs)
+    buf, _ = sol.pack_chunk(list(range(len(jobs))), jobs, None)
+    ref_runs, ref_out = R._run_seg(
+        jnp.asarray(buf), penalties=pen, PB=4, K=64, smax=128,
+        maxr=sol.maxr, interpret=True)
+    ref_runs = np.asarray(ref_runs).reshape(8, sol.maxr)
+    ref_out = np.asarray(ref_out).reshape(8, -1)
+    runs, out = T.run_seg(torch.from_numpy(buf), penalties=pen, K=64,
+                          smax=128, maxr=sol.maxr)
+    n_exc = _check_kernel_outputs(ref_runs, ref_out, runs.numpy(),
+                                  out.numpy(), [0] * 8, sol.maxr)
+    assert n_exc == 0
+    out = out.numpy()
+    assert out[:6, 0].all()                         # every job solves
+    assert out[1, 1] == 0 and out[4, 1] == 0        # at level 0
+    lag = max(pen.mismatch, pen.gap_opening1 + pen.gap_extension1,
+              pen.gap_opening2 + pen.gap_extension2)
+    assert out[0, 1] == 16 * pen.mismatch and out[3, 1] == 21 * pen.mismatch
+    assert out[3, 1] > 2 * lag                      # the window wrapped
+    assert out[2, 1] == 6 * pen.mismatch + pen.gap_cost(20)
+    assert pen.gap_cost(20) == pen.gap_opening2 + 20 * pen.gap_extension2

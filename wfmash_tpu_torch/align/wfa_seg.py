@@ -11,7 +11,11 @@ I/O contract as the TPU kernel:
   int32 params per row) and returns `runs_full (B, maxr) int32` and
   `out16 (B, 16 + RUNS_CAP) int16` (term columns, then the runs compacted
   from each row's cursor). On a CUDA tensor it launches the hand-written
-  kernel csrc/seg_wfa.cu; on a CPU tensor it runs `seg_sweep_torch`.
+  kernel csrc/seg_wfa.cu; on a CPU tensor it runs `seg_sweep_torch`. The
+  kernel keeps the sweep's lag window (the last max(x, o1+e1, o2+e2) + 1
+  levels) in shared memory and writes the full int16 history to global
+  scratch for its backtrace, which one warp runs; K must be a multiple
+  of 32 there.
 * `seg_sweep_torch` is the plain PyTorch version of the same function,
   vectorised over problems and diagonals level by level.
 * `SegmentSolver`, `TieredSegmentSolver` and `_StreamSolve` are the
@@ -397,6 +401,8 @@ def run_seg(buf: torch.Tensor, *, penalties: Penalties, K: int, smax: int,
                                maxr=maxr)
     if buf.device.type != "cuda":
         raise ValueError(f"run_seg: no kernel for device {buf.device}")
+    if K % 32:
+        raise ValueError(f"the kernel takes K in multiples of 32, got {K}")
     buf = buf.contiguous()
     dev = buf.device
     ncap = min(maxr, RUNS_CAP)

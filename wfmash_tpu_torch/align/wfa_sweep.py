@@ -75,9 +75,53 @@ def ring_sizes(p: Penalties) -> tuple[int, int]:
 
 
 def scratch_words(p: Penalties, K: int) -> int:
-    """int32 words of ring scratch one problem needs."""
+    """int32 words of ring scratch one problem needs under the global-ring
+    kernel."""
     rm, rg = ring_sizes(p)
     return (2 * rm + 12 * rg) * K
+
+
+BLOCK_LANES = 512           # lanes one block of the shared-memory kernel owns
+HALO = 16                   # halo lanes a side that a cluster's block adds
+SMEM_LIMIT = 227 * 1024     # dynamic shared memory one block can be given
+_SMEM_STATIC = 64           # room kept for the kernel's few static words
+
+
+def ring_bytes_per_lane(p: Penalties) -> int:
+    """Bytes of narrow ring words a lane holds: an M cell is a uint16
+    offset and a 32-bit anchor, a gap cell a uint16 offset, a uint16
+    gap-open coordinate and a 32-bit anchor, for each of four gap states."""
+    rm, rg = ring_sizes(p)
+    return 6 * rm + 32 * rg
+
+
+def kernel_choice(p: Penalties, K: int) -> int:
+    """Which kernel of csrc/sweep_wfa.cu a sweep of K lanes under
+    penalties p takes, decided from these two alone: the number of blocks
+    of the cluster that holds one problem's rings in shared memory (1 up
+    to K = 512; 2, 4, 8 at K = 1024, 2048, 4096), or 0 for the kernel with
+    rings in global scratch (K above 512 and not one of those, or rings
+    larger than a block's shared memory: a block holds its K / cluster
+    lanes and, either side, HALO lanes of its neighbours in a cluster or
+    one dead column alone)."""
+    if K <= BLOCK_LANES:
+        cluster = 1
+    elif K in (2 * BLOCK_LANES, 4 * BLOCK_LANES, 8 * BLOCK_LANES):
+        cluster = K // BLOCK_LANES
+    else:
+        return 0
+    lanes = K // cluster + 2 * (HALO if cluster > 1 else 1)
+    if ring_bytes_per_lane(p) * lanes + _SMEM_STATIC > SMEM_LIMIT:
+        return 0
+    return cluster
+
+
+def kernel_name(cluster: int) -> str:
+    """The words chip_smoke.py prints for a `kernel_choice`."""
+    if cluster == 0:
+        return "global rings"
+    return "shared rings, one block" if cluster == 1 else \
+        f"shared rings, cluster of {cluster}"
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +163,32 @@ def _extend(h, q, t, kv, qlen, tlen):
     return out
 
 
+_NONE16 = 0xFFFF      # a ring word that holds no offset / no gap-open cell
+_I_SAT = 0xFFFE       # stored insertion offsets saturate here
+
+
+def _narrow16(v: torch.Tensor, ins: bool) -> torch.Tensor:
+    """int32 offsets (none <= NEG_I) or gap-open coordinates (none < 0)
+    -> the kernel's uint16 ring word. Insertion offsets are stored less
+    one, saturated at _I_SAT."""
+    w = (v - 1).clamp(max=_I_SAT) if ins else v
+    return torch.where(v < 0, _NONE16, w).to(torch.uint16)
+
+
+def _widen16(w: torch.Tensor, none: int, ins: bool) -> torch.Tensor:
+    v = w.to(torch.int32)
+    return torch.where(v == _NONE16, none, v + 1 if ins else v)
+
+
+def _narrow32(a: torch.Tensor) -> torch.Tensor:
+    """Packed anchors (int64 values below 2**32) -> their 32-bit words."""
+    return torch.where(a >= 1 << 31, a - (1 << 32), a).to(torch.int32)
+
+
+def _widen32(w: torch.Tensor) -> torch.Tensor:
+    return w.to(torch.int64) & UNSET32
+
+
 def sweep_torch(query: torch.Tensor, target: torch.Tensor,
                 par: torch.Tensor, seed_off: torch.Tensor,
                 seed_anc: torch.Tensor, *, penalties: Penalties, K: int,
@@ -145,21 +215,30 @@ def sweep_torch(query: torch.Tensor, target: torch.Tensor,
     neg = torch.full((B, K), NEG_I, dtype=i32, device=dev)
     uns = torch.full((B, K), UNSET32, dtype=i64, device=dev)
     minus1 = torch.full((B, K), -1, dtype=i32, device=dev)
-    off_m = [neg] * Rm
-    anc_m = [uns] * Rm
-    off_g = [[neg] * Rg for _ in range(4)]
-    anc_g = [[uns] * Rg for _ in range(4)]
-    open_g = [[minus1] * Rg for _ in range(4)]
-    off_m[0] = seed_off.to(i32)
-    anc_m[0] = seed_anc.to(i64) & UNSET32
+    # The rings hold the kernel's narrow words and are widened on read.
+    # Gap state g < 2 is an insertion: its offset is stored less one and
+    # saturated (an insertion offset of 65535 or more is out of bounds
+    # whatever its exact value).
+    none16 = _narrow16(neg, False)
+    off_m = [none16] * Rm
+    anc_m = [_narrow32(uns)] * Rm
+    off_g = [[none16] * Rg for _ in range(4)]
+    anc_g = [[_narrow32(uns)] * Rg for _ in range(4)]
+    open_g = [[none16] * Rg for _ in range(4)]
+    off_m[0] = _narrow16(seed_off.to(i32), False)
+    anc_m[0] = _narrow32(seed_anc.to(i64) & UNSET32)
 
     def land_m(s):
-        return (off_m[s % Rm], anc_m[s % Rm]) if s >= 0 else (neg, uns)
+        if s < 0:
+            return neg, uns
+        return _widen16(off_m[s % Rm], NEG_I, False), _widen32(anc_m[s % Rm])
 
     def land_g(g, s):
         if s < 0:
             return neg, uns, minus1
-        return off_g[g][s % Rg], anc_g[g][s % Rg], open_g[g][s % Rg]
+        return (_widen16(off_g[g][s % Rg], NEG_I, g < 2),
+                _widen32(anc_g[g][s % Rg]),
+                _widen16(open_g[g][s % Rg], -1, False))
 
     def sr(a, fill):   # value at k-1
         return torch.cat([fill[:, :1], a[:, :-1]], dim=1)
@@ -241,9 +320,12 @@ def sweep_torch(query: torch.Tensor, target: torch.Tensor,
                 & (m_ext > mid))
         m_anc = torch.where(cr_q, _pack(mid - kvb, mid.expand(B, K)), m_anc)
 
-        off_m[s % Rm], anc_m[s % Rm] = m_ext, m_anc
+        off_m[s % Rm] = _narrow16(m_ext, False)
+        anc_m[s % Rm] = _narrow32(m_anc)
         for g, (o, a, op) in enumerate((i1, i2, d1, d2)):
-            off_g[g][s % Rg], anc_g[g][s % Rg], open_g[g][s % Rg] = o, a, op
+            off_g[g][s % Rg] = _narrow16(o, g < 2)
+            anc_g[g][s % Rg] = _narrow32(a)
+            open_g[g][s % Rg] = _narrow16(op, False)
 
         fin_off = m_ext.gather(1, d_end)[:, 0]
         fin_anc = m_anc.gather(1, d_end)[:, 0]
@@ -290,7 +372,9 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sweep_wfa_launch.restype = ci
         lib.sweep_wfa_launch.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci, ci,
-                                         ci, ci, ci, ci, ci, vp, vp, vp]
+                                         ci, ci, ci, ci, ci, ci, vp, vp, vp]
+        lib.sweep_wfa_active_clusters.restype = ci
+        lib.sweep_wfa_active_clusters.argtypes = [ci] * 7
         lib.sweep_wfa_error_string.restype = ctypes.c_char_p
         lib.sweep_wfa_error_string.argtypes = [ci]
         _lib_ready = True
@@ -302,15 +386,15 @@ def run_sweep(query: torch.Tensor, target: torch.Tensor, par: torch.Tensor,
               penalties: Penalties, K: int, max_s: int) -> torch.Tensor:
     """One batched sweep. query/target (B, L) uint8 rows padded with 0x01 /
     0x02 at least SEQ_PAD bytes past the lengths, L a multiple of 4; par
-    (B, 8) int32 (qlen, tlen, axis_is_query, mid, done0); seed_off /
-    seed_anc (B, K) int32 score-0 M wavefront and its packed anchors
-    (the uint32 bit patterns). Returns term (B, 8) int32: finished, score,
+    (B, 8) int32 (qlen, tlen, axis_is_query, mid, done0; lengths below
+    65535); seed_off / seed_anc (B, K) int32 score-0 M wavefront (each
+    offset NEG_I or in [0, 65534]) and its packed anchors (the uint32 bit
+    patterns). Returns term (B, 8) int32: finished, score,
     packed anchor, clipped, swept levels, wavefront lanes (`term_lanes`).
 
-    CUDA tensors launch the hand-written kernel on the current stream
-    (asynchronously) and raise if the launch is refused; CPU tensors run
-    the plain version."""
-    global LAUNCHES
+    CUDA tensors launch the hand-written kernel that `kernel_choice`
+    names on the current stream (asynchronously) and raise if the launch
+    is refused; CPU tensors run the plain version."""
     B, L = query.shape
     for name, ten, dt, shape in (
             ("query", query, torch.uint8, (B, L)),
@@ -331,15 +415,28 @@ def run_sweep(query: torch.Tensor, target: torch.Tensor, par: torch.Tensor,
                            penalties=penalties, K=K, max_s=max_s)
     if query.device.type != "cuda":
         raise ValueError(f"run_sweep: no kernel for device {query.device}")
+    return _launch(query, target, par, seed_off, seed_anc, penalties, K,
+                   max_s, kernel_choice(penalties, K))
+
+
+def _launch(query, target, par, seed_off, seed_anc, p: Penalties, K: int,
+            max_s: int, cluster: int) -> torch.Tensor:
+    """Launch the kernel `cluster` names (`kernel_choice`) on checked CUDA
+    tensors. chip_smoke.py also calls it with cluster = 0 at shapes that
+    take the shared-memory kernel, to time the global-ring kernel beside
+    it."""
+    global LAUNCHES
+    B, L = query.shape
     dev = query.device
     query, target, par, seed_off, seed_anc = (
         a.contiguous() for a in (query, target, par, seed_off, seed_anc))
     term = torch.empty((B, NTERM), dtype=torch.int32, device=dev)
-    # ring scratch is freed to the caching allocator on return; launches
-    # on one stream run in order, so the next sweep reuses it safely
-    scratch = torch.empty((B, scratch_words(penalties, K)),
-                          dtype=torch.int32, device=dev)
-    p = penalties
+    scratch = None
+    if cluster == 0:
+        # ring scratch is freed to the caching allocator on return;
+        # launches on one stream run in order, so the next sweep reuses it
+        scratch = torch.empty((B, scratch_words(p, K)), dtype=torch.int32,
+                              device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -347,14 +444,35 @@ def run_sweep(query: torch.Tensor, target: torch.Tensor, par: torch.Tensor,
             query.data_ptr(), target.data_ptr(), B, L, par.data_ptr(),
             seed_off.data_ptr(), seed_anc.data_ptr(), K, max_s, p.mismatch,
             p.gap_opening1, p.gap_extension1, p.gap_opening2,
-            p.gap_extension2, scratch.data_ptr(), term.data_ptr(), stream)
+            p.gap_extension2, cluster,
+            None if scratch is None else scratch.data_ptr(),
+            term.data_ptr(), stream)
     if err:
         msg = lib.sweep_wfa_error_string(err).decode()
-        raise RuntimeError(f"sweep_wfa launch failed (B={B} K={K} L={L}): "
-                           f"{msg}")
+        raise RuntimeError(f"sweep_wfa launch failed (B={B} K={K} L={L}, "
+                           f"{kernel_name(cluster)}): {msg}")
     with _launch_lock:
         LAUNCHES += 1
     return term
+
+
+def active_clusters(p: Penalties, K: int, cluster: int | None = None) -> int:
+    """Clusters (problems) of the shared-memory kernel the current card
+    holds at once at this shape when a batch is large enough to fill it,
+    as cudaOccupancyMaxActiveClusters says; for the cluster size
+    `kernel_choice` names, or a given one."""
+    if cluster is None:
+        cluster = kernel_choice(p, K)
+    if cluster == 0:
+        raise ValueError(f"K={K} takes the global-ring kernel")
+    lib = _lib()
+    n = lib.sweep_wfa_active_clusters(
+        K, p.mismatch, p.gap_opening1, p.gap_extension1, p.gap_opening2,
+        p.gap_extension2, cluster)
+    if n < 0:
+        raise RuntimeError("sweep_wfa occupancy query failed: "
+                           + lib.sweep_wfa_error_string(-n).decode())
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +509,9 @@ class ExactSweeps:
         B = query.shape[0]
         if np.any(qlen >= 65535) or np.any(tlen >= 65535):
             raise ValueError("the sweep requires lengths < 65535")
+        seed_off = np.asarray(seed_off)
+        if np.any((seed_off > NEG_I) & ((seed_off < 0) | (seed_off > 65534))):
+            raise ValueError("seed offsets must be NEG_I or in [0, 65534]")
         done0 = np.asarray(done0, bool)
         if done0.all():
             return (np.zeros(B, np.int32), np.full(B, -1, np.int32),
