@@ -6,8 +6,8 @@ Phases (any failure exits non-zero; nothing is caught):
    (g++), all started together;
 3. per segment tier, one full chunk of generated jobs packed by the port's
    pack_chunk: the segment kernel and its plain PyTorch version (on the
-   card and on a CPU copy) must agree byte for byte (term col 8, the
-   per-problem level counter, aside);
+   card, and on a CPU copy of every fourth row) must agree byte for byte
+   (term col 8, the per-problem level counter, aside);
 4. the tiered solver on the card: every `ok` CIGAR must equal wfa_np's;
 5. per span-ladder step K = 256..4096, one seeded batch (both split axes,
    some problems solved before the sweep) and one batch built to touch
@@ -24,13 +24,24 @@ Phases (any failure exits non-zero; nothing is caught):
 6. ExactWfaEngine.align_batch on seeded 2-40 kb blocks: every CIGAR
    replays and scores the native exact WFA's score; the sweep kernel must
    have launched;
-7. the CLI (`wfmash_tpu_torch target.fa query.fa -t 1`) in-process on the
-   6 Mb synthetic pair of tests/test_scale.py, once on the default path
-   (SegmentedEngine) and once with WFMASH_TPU_SEGMENTED=0 (ExactWfaEngine
-   alone): exit 0, kernel launches counted from 0 for each run, sampled
-   CIGARs replay exactly, query coverage >= 0.95; a run that passed its
-   gates is made once more under torch.profiler for the card's busy
-   share (reported only).
+7. the mapping's device stages on the 6 Mb synthetic pair of
+   tests/test_scale.py with the CLI's default parameters: every fragment
+   of the query through DeviceL1.candidates and every candidate through
+   DeviceL2.walk on the card. Every row the device answers must equal the
+   native host stage's answer and the same torch program's on CPU
+   tensors, and at least 90% of the fragments and of the candidates must
+   be answered by the device and not left to the host. These are torch
+   programs, not hand-written kernels: they are not in the kernel table;
+8. the CLI (`wfmash_tpu_torch target.fa query.fa -t 1`) in-process on the
+   same pair, once on the default path (SegmentedEngine) and once with
+   WFMASH_TPU_SEGMENTED=0 (ExactWfaEngine alone), mapping through the
+   device stages as is the default on a card: exit 0, kernel launches
+   counted from 0 for each run, device L1 and L2 calls counted, sampled
+   CIGARs replay exactly, query coverage >= 0.95, the PAF byte-equal to
+   that of one more run with WFMASH_TPU_DEVICE_L1=0 (host mapping) and,
+   on the default path, to that of a run with `-t 4` (forked workers
+   beside the CUDA context); a run that passed its gates is made once
+   more under torch.profiler for the card's busy share (reported only).
 The last lines are the card line, the kernel table as JSON, and the
 result as JSON.
 
@@ -52,8 +63,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -71,6 +84,11 @@ SEED = 20261016
 N_SAMPLE = 60
 MIN_COVERAGE = 0.95
 MIN_SPEC_CHECKS = 200
+MIN_DEVICE_SHARE = 0.90    # of fragments (L1) and candidates (L2)
+# the segment kernel's plain version runs on the card on every row of a
+# tier's chunk, and through run_seg's CPU path on every fourth row (a
+# row is one problem; the whole chunk took 27-94 s a tier on the CPU)
+CPU_COPY_STRIDE = 4
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 INT_OPS_PER_S = 67e12          # non-tensor fp32 FLOP rate, published
@@ -298,7 +316,7 @@ def _diff(a, b):
 def tier_phase(p, dev, rng):
     """Kernel vs plain version on one full chunk per tier: the plain
     version runs on the card (its time is the one reported) and, through
-    run_seg's CPU path, on a CPU copy of the same buffer."""
+    run_seg's CPU path, on a CPU copy of every fourth row of that buffer."""
     import torch
 
     from wfmash_tpu_torch.align import wfa_seg
@@ -317,10 +335,12 @@ def tier_phase(p, dev, rng):
         p_ms, plain = _cuda_ms(
             lambda: wfa_seg.seg_sweep_torch(buf, **kw), 1)
         t0 = time.monotonic()
-        plain_cpu = wfa_seg.run_seg(buf.cpu(), **kw)
+        plain_cpu = wfa_seg.run_seg(
+            buf[::CPU_COPY_STRIDE].contiguous().cpu(), **kw)
         c_ms = (time.monotonic() - t0) * 1e3
         err, n_bad = _diff(kern, plain)
-        err_c, n_bad_c = _diff(kern, plain_cpu)
+        err_c, n_bad_c = _diff([a[::CPU_COPY_STRIDE] for a in kern],
+                               plain_cpu)
         term = kern[1][:, :16].cpu().numpy()
         used = (tier.maxr - 1) - term[:, 4].astype(np.int64)
         # swept cells: each problem's wavefront lanes x 5 states; level 0
@@ -348,7 +368,8 @@ def tier_phase(p, dev, rng):
             f"({cells / k_ms / 1e6:.2f} Gcells/s; bound {_bound(bytes_ms, ops_ms)}"
             f"), plain on the card "
             f"{p_ms:.3f} ms (rows differing {n_bad}, max_abs_err {err}), "
-            f"plain on a CPU copy {c_ms:.1f} ms (rows differing {n_bad_c}, "
+            f"plain on a CPU copy of every {CPU_COPY_STRIDE}th row "
+            f"{c_ms:.1f} ms (rows differing {n_bad_c}, "
             f"max_abs_err {err_c})")
         if n_bad or n_bad_c:
             raise RuntimeError(f"tier t{no + 1}: kernel and plain version "
@@ -726,6 +747,200 @@ def write_pair(tmp, bp):
     return pt, pq, ACGT[anc].tobytes(), ACGT[der].tobytes()
 
 
+def _map_setup(pair):
+    """(params, mapper, index, entries, frags) for the pair under the CLI's
+    default parameters: the target's index, the query's fragment sketches
+    [(frag_index, q_len, sketch, ok)] and the L1 stage's input rows for
+    the fragments that pass the sketch gates."""
+    from wfmash_tpu_torch import cli
+    from wfmash_tpu_torch.index.build import build_index
+    from wfmash_tpu_torch.io.fasta import FastaReader
+    from wfmash_tpu_torch.io.seqids import SequenceIdManager
+    from wfmash_tpu_torch.map.engine import Mapper
+
+    pt, pq = pair[:2]
+    mp = cli.parse_args([pt, pq, "-t", "1"])[0]
+    cli.apply_auto_identity(mp)
+    idm = SequenceIdManager(
+        mp.query_sequences, mp.ref_sequences, mp.query_prefix,
+        [mp.target_prefix] if mp.target_prefix else [],
+        mp.prefix_delim if mp.skip_prefix else "", mp.query_list,
+        mp.target_list)
+    mapper = Mapper(mp, idm)
+    index = build_index(
+        mp, [(idm.get_sequence_id("anc"), FastaReader(pt).fetch("anc"))],
+        log=log)
+    q_seqid = idm.get_sequence_id("der")
+    q_group = int(mapper.group_of([q_seqid])[0])
+    t0 = time.monotonic()
+    entries = mapper.sketch_query(FastaReader(pq).fetch("der"))
+    sketch_s = time.monotonic() - t0
+    frags = [dict(hashes=sk.hashes, n=sk.sketch_size, q_len=q_len,
+                  q_seqid=q_seqid, q_group=q_group,
+                  min_hits=mapper._minimum_hits_for(q_len, sk))
+             for _, q_len, sk, ok in entries if ok]
+    log(f"[map] parameters: window {mp.window_length}, k {mp.kmer_size}, "
+        f"sketch size {mp.sketch_size}, identity "
+        f"{mp.percentage_identity:.4f}; index: "
+        f"{len(index.unique_hashes)} unique hashes, "
+        f"{len(index.endpoints)} endpoints, {len(index.minmer_index)} "
+        f"records; query: {len(entries)} fragments sketched in "
+        f"{sketch_s * 1e3:.0f} ms, {len(frags)} pass the sketch gates")
+    return mp, mapper, index, [e for e in entries if e[3]], frags
+
+
+def _chunk_ms(chunks, run):
+    """CUDA-event ms of run(chunk) for each chunk (one call each, after
+    one untimed call on the first chunk), and the peak device memory
+    allocated above what was held before."""
+    import torch
+
+    _cuda_ms(lambda: run(chunks[0]), 1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = [_cuda_ms(lambda c=c: run(c), 1)[0] for c in chunks]
+    return ms, torch.cuda.max_memory_allocated() - base
+
+
+def _ms_line(ms):
+    return (f"{len(ms)} chunks, {sum(ms):.3f} ms in all, a chunk "
+            f"{min(ms):.3f}-{max(ms):.3f} ms (median "
+            f"{sorted(ms)[len(ms) // 2]:.3f})")
+
+
+def map_phase(pair, dev):
+    """DeviceL1 and DeviceL2 on the card over every fragment and candidate
+    of the pair, against the native host stages and against the same torch
+    programs on CPU tensors."""
+    import torch
+
+    from wfmash_tpu_torch.map import l1l2
+    from wfmash_tpu_torch.map.l1_device import DeviceL1
+    from wfmash_tpu_torch.map.l2_device import DeviceL2
+    from wfmash_tpu_torch.utils import perf
+
+    mp, mapper, index, entries, frags = _map_setup(pair)
+    perf.reset()
+
+    # ---- L1 -----------------------------------------------------------
+    t0 = time.monotonic()
+    d1 = DeviceL1(index, mapper._group_arr, mp, mapper.sketch_cutoffs,
+                  device=dev)
+    torch.cuda.synchronize()
+    upload_ms = (time.monotonic() - t0) * 1e3
+    t0 = time.monotonic()
+    got = d1.candidates(frags)
+    l1_wall = time.monotonic() - t0
+    l1_calls = int(perf.get("map.device_calls"))
+    t0 = time.monotonic()
+    got_cpu = DeviceL1(index, mapper._group_arr, mp, mapper.sketch_cutoffs,
+                       device="cpu").candidates(frags)
+    l1_cpu = time.monotonic() - t0
+    t0 = time.monotonic()
+    host = [[(c.seq_id, c.range_start, c.range_end, c.intersection_size)
+             for c in mapper._host_l1(sk, q_len, f["q_seqid"], f["q_group"],
+                                      f["min_hits"], index)]
+            for (_, q_len, sk, _), f in zip(entries, frags)]
+    l1_host = time.monotonic() - t0
+    n_dev = sum(g is not None for g in got)
+    bad = sum(g is not None and g != h for g, h in zip(got, host))
+    bad_cpu = sum(g != c for g, c in zip(got, got_cpu))
+    chunks = [d1._pack(frags[c0:c0 + d1.BATCH])
+              for c0 in range(0, len(frags), d1.BATCH)]
+    ms, peak = _chunk_ms(chunks, lambda c: d1._run(*c))
+    share1 = n_dev / len(frags)
+    log(f"[map L1] {len(frags)} fragments, {l1_calls}"
+        f" calls, answered on the card {n_dev} ({100 * share1:.2f}%), left "
+        f"to the host {len(frags) - n_dev}; candidates "
+        f"{sum(len(g) for g in got if g)}; rows differing from the native "
+        f"host stage {bad}, from the program on CPU tensors {bad_cpu}")
+    log(f"[map L1] index upload {upload_ms:.1f} ms; on the card: "
+        f"{_ms_line(ms)}, sketch width {chunks[0][0].shape[1]}, cap "
+        f"{d1.cap}, peak device memory of a chunk {peak / 1e6:.1f} MB; "
+        f"candidates() wall {l1_wall * 1e3:.0f} ms (packing, copies and "
+        f"row lists included); native host stage on the same rows "
+        f"{l1_host * 1e3:.0f} ms; the program on CPU tensors "
+        f"{l1_cpu * 1e3:.0f} ms")
+    if bad or bad_cpu:
+        raise RuntimeError(f"device L1 differs on {bad} rows from the host "
+                           f"stage, on {bad_cpu} from the CPU-tensor run")
+
+    # ---- L2 -----------------------------------------------------------
+    rows = [(sk, q_len, l1l2.L1Candidate(*r))
+            for (_, q_len, sk, _), g in zip(entries, host) for r in g]
+    d2 = DeviceL2(index, mp, device=dev)
+    t0 = time.monotonic()
+    got = d2.walk(rows)
+    l2_wall = time.monotonic() - t0
+    l2_calls = int(perf.get("map.l2_device_calls"))
+    t0 = time.monotonic()
+    got_cpu = DeviceL2(index, mp, device="cpu").walk(rows)
+    l2_cpu = time.monotonic() - t0
+    t0 = time.monotonic()
+    host2 = [l1l2.compute_l2_mapped_regions(sk, q_len, cand, index, mp)
+             for sk, q_len, cand in rows]
+    l2_host = time.monotonic() - t0
+
+    def keys(ms_):
+        return None if ms_ is None else [
+            (m.seq_id, m.mean_optimal_pos, m.optimal_start, m.optimal_end,
+             m.shared_sketch_size, m.strand) for m in ms_]
+
+    n_dev = sum(g is not None for g in got)
+    bad = sum(g is not None and keys(g) != keys(h)
+              for g, h in zip(got, host2))
+    bad_cpu = sum(keys(g) != keys(c) for g, c in zip(got, got_cpu))
+    t0 = time.monotonic()
+    prep = d2._prepare(rows)
+    chunks = [d2._pack(rows, prep, k0, min(k0 + d2.BATCH, n_dev))
+              for k0 in range(0, n_dev, d2.BATCH)]
+    events_s = time.monotonic() - t0
+    ms, peak = _chunk_ms(chunks, d2._run)
+    widths = [c[0].shape[1] for c in chunks]
+    # the products' operations: 2 B E E 3 (S + 1) a chunk
+    flop = sum(2 * c[0].shape[0] * c[0].shape[1] ** 2 * 3 * (d2.S_CAP + 1)
+               for c in chunks)
+    share2 = n_dev / max(len(rows), 1)
+    log(f"[map L2] {len(rows)} candidates, "
+        f"{l2_calls} calls, answered on the "
+        f"card {n_dev} ({100 * share2:.2f}%), left to the host "
+        f"{len(rows) - n_dev}; mappings {sum(len(g) for g in got if g)}; "
+        f"rows differing from the native host walk {bad}, from the program "
+        f"on CPU tensors {bad_cpu}")
+    log(f"[map L2] on the card: {_ms_line(ms)}, events a chunk "
+        f"{min(widths)}-{max(widths)}, {flop / 1e9:.1f} GFLOP of products "
+        f"({flop / sum(ms) / 1e9:.2f} TFLOP/s), peak device memory of a "
+        f"chunk {peak / 1e6:.1f} MB; walk() wall {l2_wall * 1e3:.0f} ms "
+        f"(of it the host's event windows and packing {events_s * 1e3:.0f} "
+        f"ms; copies and the run replay included); native host walk on the "
+        f"same rows {l2_host * 1e3:.0f} ms; the program on CPU tensors "
+        f"{l2_cpu * 1e3:.0f} ms")
+    if bad or bad_cpu:
+        raise RuntimeError(f"device L2 differs on {bad} rows from the host "
+                           f"walk, on {bad_cpu} from the CPU-tensor run")
+    if min(share1, share2) < MIN_DEVICE_SHARE:
+        raise RuntimeError(
+            f"the device answered {share1:.4f} of the fragments and "
+            f"{share2:.4f} of the candidates; the gate is "
+            f"{MIN_DEVICE_SHARE}")
+
+
+def write_split_query(tmp, der_b, n):
+    """The pair's query cut into n sequences, as a plain FASTA file with
+    its .fai: with several queries and `-t` above 1 the mapping forks its
+    workers."""
+    path = os.path.join(tmp, f"der{n}.fa")
+    step = -(-len(der_b) // n)
+    with open(path, "wb") as fh, open(path + ".fai", "w") as fai:
+        for i in range(n):
+            seq = der_b[i * step:(i + 1) * step]
+            fh.write(b">der_%d\n" % i)
+            fai.write(f"der_{i}\t{len(seq)}\t{fh.tell()}\t{len(seq)}\t"
+                      f"{len(seq) + 1}\n")
+            fh.write(seq + b"\n")
+    return path
+
+
 def _busy_share(tag, run):
     """A second run of the same command under torch.profiler: the card's
     time by kernel, and its share of the run's wall (reported, not gated;
@@ -748,7 +963,7 @@ def _busy_share(tag, run):
         if us is None:
             us = ev.self_cuda_time_total
         name = next((k for k in ("seg_wfa", "sweep_wfa", "Memcpy")
-                     if k in ev.key), "other")
+                     if k in ev.key), "torch operators")
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + us / 1e3, n + ev.count)
     busy = sum(ms for ms, _ in by_name.values())
@@ -773,12 +988,40 @@ def _engine_switch(segmented):
         del os.environ["WFMASH_TPU_SEGMENTED"]
 
 
-def e2e_phase(tmp, pair, segmented=True):
-    """The port's CLI in-process on the pair of write_pair: the default
-    path, or ExactWfaEngine alone (WFMASH_TPU_SEGMENTED=0). Returns the
-    launches of (seg_wfa, sweep_wfa), both counted from 0."""
+def _run_cli(argv, out_paf, segmented, **env):
+    """One in-process run of the port's CLI with its output in out_paf and
+    `env` set for its duration; the run's messages go on to the standard
+    error. Returns (exit code, wall s, the "mapping done in" seconds)."""
     import torch
 
+    from wfmash_tpu_torch import cli
+
+    err = io.StringIO()
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.monotonic()
+        with open(out_paf, "w") as fh, contextlib.redirect_stdout(fh), \
+                contextlib.redirect_stderr(err), _engine_switch(segmented):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        for k, v in before.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+        sys.stderr.write(err.getvalue())
+    m = re.search(r"mapping done in ([0-9.]+)s", err.getvalue())
+    return rc, wall, float(m.group(1)) if m else float("nan")
+
+
+def e2e_phase(tmp, pair, segmented=True):
+    """The port's CLI in-process on the pair of write_pair: the default
+    path, or ExactWfaEngine alone (WFMASH_TPU_SEGMENTED=0), mapping
+    through the device stages (the default on a card). Returns the
+    launches of (seg_wfa, sweep_wfa), both counted from 0."""
     from wfmash_tpu_torch import cli
     from wfmash_tpu_torch.align import cigar as C
     from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
@@ -790,21 +1033,28 @@ def e2e_phase(tmp, pair, segmented=True):
     out_paf = os.path.join(tmp, f"out{int(segmented)}.paf")
     perf.reset()
     wfa_seg.LAUNCHES = wfa_sweep.LAUNCHES = 0
-    t0 = time.monotonic()
-    with open(out_paf, "w") as fh, contextlib.redirect_stdout(fh), \
-            _engine_switch(segmented):
-        rc = cli.main([pt, pq, "-t", "1"])
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    rc, wall, map_s = _run_cli([pt, pq, "-t", "1"], out_paf, segmented)
     launches = (wfa_seg.LAUNCHES, wfa_sweep.LAUNCHES)
+    snap = perf.snapshot()
     log(f"[{tag}] {len(anc_b) / 1e6:g} Mb pair: exit {rc}, wall {wall:.2f} "
         f"s, seg_wfa launches {launches[0]}, sweep_wfa launches "
-        f"{launches[1]}")
+        f"{launches[1]}, device L1 calls "
+        f"{int(snap.get('map.device_calls', 0))}, device L2 calls "
+        f"{int(snap.get('map.l2_device_calls', 0))}")
     log(f"[{tag}] counters: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(perf.snapshot().items())))
+        f"{k} {v:.3f}" for k, v in sorted(snap.items())))
     gate = launches[0] if segmented else launches[1]
     if rc != 0 or gate == 0:
         raise RuntimeError(f"CLI exit {rc}, launches {launches}")
+    if not (snap.get("map.device_calls") and snap.get("map.l2_device_calls")):
+        raise RuntimeError("the CLI's default mapping did not call the "
+                           "device stages")
+    left = [snap["map.l1_host_rows"] / snap["map.l1_rows"],
+            snap["map.l2_host_rows"] / snap["map.l2_rows"]]
+    if max(left) > 1 - MIN_DEVICE_SHARE:
+        raise RuntimeError(f"the device stages left {left[0]:.4f} of the "
+                           f"fragments and {left[1]:.4f} of the candidates "
+                           "to the host")
 
     rows = [ln for ln in open(out_paf) if "\tcg:Z:" in ln]
     if not rows:
@@ -832,8 +1082,55 @@ def e2e_phase(tmp, pair, segmented=True):
         f"exactly, query coverage {cov_frac:.4f}")
     if cov_frac < MIN_COVERAGE:
         raise RuntimeError(f"coverage {cov_frac:.4f} < {MIN_COVERAGE}")
+
+    # the same command with the host mapping, and (default path) with four
+    # workers forked beside the CUDA context: the same bytes
+    want = open(out_paf, "rb").read()
+    others = [("WFMASH_TPU_DEVICE_L1=0", "1", dict(WFMASH_TPU_DEVICE_L1="0"))]
+    if segmented:
+        others.append(("-t 4", "4", {}))
+    for name, threads, env in others:
+        other_paf = os.path.join(tmp, "other.paf")
+        perf.reset()
+        rc, wall2, map2_s = _run_cli([pt, pq, "-t", threads], other_paf,
+                                     segmented, **env)
+        same = open(other_paf, "rb").read() == want
+        log(f"[{tag}] {name}: exit {rc}, wall {wall2:.2f} s, device L1 "
+            f"calls {int(perf.get('map.device_calls'))}, PAF "
+            f"{'byte-equal' if same else 'DIFFERS'}; mapping done in "
+            f"{map_s:.2f} s with the device stages (-t 1), {map2_s:.2f} s "
+            f"in this run")
+        if rc != 0 or not same:
+            raise RuntimeError(f"{tag}: the run with {name} exits {rc} or "
+                               "writes another PAF")
+        if bool(env) != (perf.get("map.device_calls") == 0):
+            raise RuntimeError(f"{tag}: {name} took the wrong mapping route")
+    if segmented:
+        # four queries: with -t 4 the sketching and the L2 + filter stages
+        # run in four forked workers while this process holds the card
+        pq4 = write_split_query(tmp, der_b, 4)
+        pafs = []
+        for threads in ("1", "4"):
+            perf.reset()
+            rc, wall2, map2_s = _run_cli(
+                [pt, pq4, "-m", "-t", threads], os.path.join(tmp, "m.paf"),
+                segmented)
+            pafs.append(open(os.path.join(tmp, "m.paf"), "rb").read())
+            log(f"[{tag}] mapping only, the query as four sequences, -t "
+                f"{threads}: exit {rc}, wall {wall2:.2f} s, mapping done in "
+                f"{map2_s:.2f} s, device L1 calls "
+                f"{int(perf.get('map.device_calls'))}, "
+                f"{pafs[-1].count(b'der_')} rows")
+            if rc != 0 or not perf.get("map.device_calls"):
+                raise RuntimeError(f"{tag}: mapping with -t {threads} "
+                                   f"exits {rc} or skipped the device")
+        if pafs[0] != pafs[1] or not pafs[0]:
+            raise RuntimeError(f"{tag}: forked workers change the mapping")
     with _engine_switch(segmented):
         _busy_share(tag, lambda: cli.main([pt, pq, "-t", "1"]))
+        if segmented:
+            _busy_share("e2e -m, mapping only",
+                        lambda: cli.main([pt, pq, "-t", "1", "-m"]))
     return launches
 
 
@@ -853,7 +1150,7 @@ def kernel_row(name, replaces, launches, rows):
 
 
 E2E_BP = 6_000_000     # the end-to-end pair's size
-PHASES = ("tiers", "spec", "sweep", "exact", "e2e", "e2e0")
+PHASES = ("tiers", "spec", "sweep", "exact", "map", "e2e", "e2e0")
 
 
 def main(argv=None) -> int:
@@ -887,8 +1184,10 @@ def main(argv=None) -> int:
         exact_phase(p, dev, rng)
     seg_launches = sweep_launches = None
     with tempfile.TemporaryDirectory() as tmp:
-        if "e2e" in phases or "e2e0" in phases:
+        if {"map", "e2e", "e2e0"} & set(phases):
             pair = write_pair(tmp, E2E_BP)
+        if "map" in phases:
+            map_phase(pair, dev)
         if "e2e" in phases:
             seg_launches, _ = e2e_phase(tmp, pair)
         if "e2e0" in phases:

@@ -4,7 +4,9 @@ originals compute.
 
 * In a subprocess (this process has jax loaded by tests/conftest.py):
   import the CLI, run `python -m wfmash_tpu_torch` on a small seeded pair
-  on the CPU for the default switches (the native host engine there),
+  on the CPU, mapping through the device stages (WFMASH_TPU_DEVICE_L1=1:
+  the torch programs on CPU tensors), for the default switches (the
+  native host engine there),
   for the card's default composition (WFMASH_TPU_SEGMENTED=1) and for
   WFMASH_TPU_SEGMENTED=0, then look at sys.modules.
 * A source scan: no file of the package, nor chip_smoke.py, has an import
@@ -48,6 +50,11 @@ out["bad"] = sorted(m for m in sys.modules
                     or m == "wfmash_tpu" or m.startswith("wfmash_tpu."))
 out["ran"] = sorted(m for m in ("wfa_exact", "wfa_seg", "wfa_sweep")
                     if "wfmash_tpu_torch.align." + m in sys.modules)
+out["mapped"] = sorted(m for m in ("l1_device", "l2_device")
+                       if "wfmash_tpu_torch.map." + m in sys.modules)
+from wfmash_tpu_torch.utils import perf
+out["device_calls"] = [perf.get("map.device_calls"),
+                       perf.get("map.l2_device_calls")]
 print(json.dumps(out))
 """
 
@@ -61,7 +68,8 @@ def test_cli_runs_both_paths_without_jax_or_reference(tmp_path):
     write_fasta(qfa, {"q1": q})
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("WFMASH_TPU_")}
-    env.update(PYTHONPATH=str(REPO), WFMASH_TPU_TORCH_DEVICE="cpu")
+    env.update(PYTHONPATH=str(REPO), WFMASH_TPU_TORCH_DEVICE="cpu",
+               WFMASH_TPU_DEVICE_L1="1")
     r = subprocess.run([sys.executable, "-c", _CHILD, tfa, qfa, "-t", "1"],
                        capture_output=True, text=True, timeout=900, env=env,
                        cwd=str(tmp_path))
@@ -69,6 +77,8 @@ def test_cli_runs_both_paths_without_jax_or_reference(tmp_path):
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert out["ran"] == ["wfa_exact", "wfa_seg", "wfa_sweep"]
+    assert out["mapped"] == ["l1_device", "l2_device"]
+    assert min(out["device_calls"]) >= 3        # one of each a CLI run
     modes = ("default", "segmented", "exact")
     assert [out[m + "_rc"] for m in modes] == [0, 0, 0]
     for mode in modes:
@@ -94,9 +104,10 @@ def test_sources_import_neither_jax_nor_the_reference():
     bad = [str(f.relative_to(REPO)) for f in files
            if _IMPORT.search(f.read_text()) or _DYNAMIC.search(f.read_text())]
     assert bad == []
+    names = {str(f.relative_to(PKG)) for f in files[:-1]}
+    assert {"map/l1_device.py", "map/l2_device.py"} <= names
     # the files the port leaves to be ported are not copied
-    for name in ("ops", "parallel", "map/l1_device.py", "map/l2_device.py",
-                 "align/wfa_jax.py", "align/wfa_pallas.py",
+    for name in ("ops", "parallel", "align/wfa_jax.py", "align/wfa_pallas.py",
                  "align/wfa_pallas_seg.py", "utils/jaxcache.py"):
         assert not (PKG / name).exists(), name
 

@@ -341,6 +341,9 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     try:
         return _main(argv)
+    except NotImplementedError as e:
+        print(f"[wfmash] ERROR: {e}", file=sys.stderr)
+        return 1
     except MemoryError:
         print(
             "[wfmash] ERROR: memory allocation failed.\n"
@@ -353,6 +356,23 @@ def main(argv=None) -> int:
         return 1
 
 
+def apply_auto_identity(mp) -> None:
+    """The identity estimate of the input's groups, and the sketch size
+    that follows from it, written into the mapping parameters (when the
+    identity was not given)."""
+    if not mp.auto_pct_identity:
+        return
+    from .map.ani import estimate_identity_for_groups
+
+    ani = estimate_identity_for_groups(mp)
+    if ani is not None:
+        mp.percentage_identity = ani
+        if not mp.sketch_size_manually_set:
+            md = 1.0 - mp.percentage_identity
+            dens = 0.02 * (1.0 + md / 0.1)
+            mp.sketch_size = int(dens * (mp.window_length - mp.kmer_size))
+
+
 def _main(argv=None) -> int:
     mp, ap, approx_mapping, remapping = parse_args(argv)
     try:
@@ -361,16 +381,7 @@ def _main(argv=None) -> int:
         print(f"[wfmash] ERROR: {e}", file=sys.stderr)
         return 1
 
-    if mp.auto_pct_identity:
-        from .map.ani import estimate_identity_for_groups
-
-        ani = estimate_identity_for_groups(mp)
-        if ani is not None:
-            mp.percentage_identity = ani
-            if not mp.sketch_size_manually_set:
-                md = 1.0 - mp.percentage_identity
-                dens = 0.02 * (1.0 + md / 0.1)
-                mp.sketch_size = int(dens * (mp.window_length - mp.kmer_size))
+    apply_auto_identity(mp)
 
     if mp.use_external_seeds:
         from .map.external import process_external_seeds
@@ -381,7 +392,12 @@ def _main(argv=None) -> int:
     from .runner import run_mapping
 
     if approx_mapping:
-        run_mapping(mp, sys.stdout)
+        run_mapping(mp, sys.stdout, device=device)
+        if os.environ.get("WFMASH_TPU_PERF"):
+            from .utils import perf
+
+            for k, v in sorted(perf.snapshot().items()):
+                print(f"[wfmash::perf] {k} = {v:.3f}", file=sys.stderr)
         return 0
 
     # full map + align pipeline; the handoff PAF goes through the temp
@@ -393,7 +409,7 @@ def _main(argv=None) -> int:
     else:
         paf_path = tempfiles.create(suffix=".paf")
         with open(paf_path, "w") as fh:
-            run_mapping(mp, fh)
+            run_mapping(mp, fh, device=device)
         ap.mashmap_paf_file = paf_path
         if tempfiles.keep_temp():
             print(f"[wfmash] keeping temp mapping PAF: {paf_path}",

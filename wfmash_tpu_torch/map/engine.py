@@ -485,8 +485,8 @@ class Mapper:
         Returns [(frag_index, q_len, sketch, ok)]."""
         p = self.params
         out = []
-        for fi, frag in self._fragments(seq):
-            sk = sketch_fragment(frag, p.kmer_size, p.sketch_size)
+        frags = self._fragments(seq)
+        for (fi, frag), sk in zip(frags, self._sketch_all(seq, frags)):
             ok = (sk.sketch_size > 0
                   and sk.kmer_complexity >= p.kmer_complexity_threshold)
             out.append((fi, len(frag), sk, ok))

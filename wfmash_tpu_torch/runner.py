@@ -61,6 +61,175 @@ def _mp_run_one(qname):
     return mapper.map_query(qname, seq, index)
 
 
+def _mp_sketch_one(qname):
+    """Phase-1 fork worker: fetch + fragment + sketch (pure host)."""
+    mapper = _MP_STATE["mapper"]
+    readers = _MP_STATE["readers"]
+    seq = None
+    for reader in readers.values():
+        if qname in reader:
+            seq = reader.fetch(qname)
+            break
+    if seq is None or len(seq) == 0:
+        return None
+    return len(seq), mapper.sketch_query(seq)
+
+
+def _mp_l2_one(qname, qlen, entries):
+    """Phase-3 fork worker: L2 + filters (host; index via fork COW)."""
+    mapper = _MP_STATE["mapper"]
+    index = _MP_STATE["index"]
+    return mapper.map_query_precomputed(qname, qlen, entries, index)
+
+
+def _map_queries_device(mapper, index, query_readers, query_names, params,
+                        meter):
+    """Phase-structured mapping with the device L1:
+
+    1. fetch + fragment + sketch every query (fork pool, pure host);
+    2. ONE stream of batched device L1 calls over ALL fragments of all
+       queries, then of batched device L2 calls over all their candidates
+       (parent process only);
+    3. L2 walk of the rows the device left + filters per query (fork
+       pool, native C++ + numpy).
+
+    The forked workers inherit the mapper, and with it `device_l1` and
+    `device_l2` whose tensors may live on a CUDA device, by copy-on-write.
+    A forked child may not touch CUDA: the workers run `sketch_query` and
+    `map_query_precomputed` only, which never reach those two objects, and
+    every task and result that is pickled holds numpy arrays and plain
+    objects only.
+
+    Byte-identical to the host path: the device programs are identical
+    per fragment and per candidate (tests/test_torch_l1.py,
+    tests/test_torch_l2.py) and fragment order is preserved end to end."""
+    results: list = []
+    pool = None
+    _MP_STATE.update(mapper=mapper, index=index, readers=query_readers)
+    if params.threads > 1 and len(query_names) > 1:
+        import multiprocessing as mp_mod
+
+        pool = mp_mod.get_context("fork").Pool(processes=params.threads)
+    try:
+        WAVE = 64
+        for w0 in range(0, len(query_names), WAVE):
+            wave = query_names[w0:w0 + WAVE]
+            if pool is not None:
+                sketched = pool.map(_mp_sketch_one, wave)
+            else:
+                sketched = [_mp_sketch_one(q) for q in wave]
+            # phase 2: one batched device stream over the wave
+            flat = []            # (wave_idx, entry_idx)
+            frag_dicts = []
+            for wi, got in enumerate(sketched):
+                if got is None:
+                    continue
+                _, entries = got
+                q_seqid = mapper.idm.get_sequence_id(wave[wi])
+                q_group = int(mapper.group_of([q_seqid])[0])
+                for ei, (fi, q_len, sk, ok) in enumerate(entries):
+                    if ok:
+                        flat.append((wi, ei))
+                        frag_dicts.append(dict(
+                            hashes=sk.hashes, n=sk.sketch_size,
+                            q_len=q_len, q_seqid=q_seqid, q_group=q_group,
+                            min_hits=mapper._minimum_hits_for(q_len, sk)))
+            rows = mapper.device_l1.candidates(frag_dicts)
+            # attach rows; drop skipped (not ok) fragments entirely
+            tasks = []
+            rows_of: dict = {k: r for k, r in zip(flat, rows)}
+            for wi, got in enumerate(sketched):
+                if got is None:
+                    continue
+                qlen, entries = got
+                ent3 = []
+                for ei, (fi, q_len, sk, ok) in enumerate(entries):
+                    if ok:
+                        ent3.append((fi, q_len, sk, rows_of[(wi, ei)]))
+                tasks.append((wave[wi], qlen, ent3))
+            # phase 2.5: batched device L2 over every candidate of the
+            # wave (parent only); results ride into the fork tasks as
+            # parallel lists, None = host walk for that candidate
+            if mapper.device_l2 is not None:
+                from .map.l1l2 import L1Candidate
+
+                l2_rows, l2_pos = [], []
+                for ti, (qname, qlen, ent3) in enumerate(tasks):
+                    for ei, (fi, q_len, sk, rws) in enumerate(ent3):
+                        for ci, r in enumerate(rws or ()):
+                            l2_rows.append((sk, q_len, L1Candidate(*r)))
+                            l2_pos.append((ti, ei, ci))
+                l2_got = mapper.device_l2.walk(l2_rows) if l2_rows else []
+                l2_map: dict = {}
+                for (ti, ei, ci), g in zip(l2_pos, l2_got):
+                    l2_map.setdefault((ti, ei), {})[ci] = g
+                for ti in range(len(tasks)):
+                    qname, qlen, ent3 = tasks[ti]
+                    ent5 = []
+                    for ei, (fi, q_len, sk, rws) in enumerate(ent3):
+                        l2s = None
+                        if rws and (ti, ei) in l2_map:
+                            got_d = l2_map[(ti, ei)]
+                            l2s = [got_d.get(ci)
+                                   for ci in range(len(rws))]
+                        ent5.append((fi, q_len, sk, rws, l2s))
+                    tasks[ti] = (qname, qlen, ent5)
+            if pool is not None:
+                got3 = pool.starmap(_mp_l2_one, tasks)
+            else:
+                got3 = [_mp_l2_one(*t) for t in tasks]
+            it = iter(got3)
+            for wi, got in enumerate(sketched):
+                if got is None:
+                    results.append(None)
+                else:
+                    r = next(it)
+                    results.append(r)
+                    meter.increment(r.query_len)
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        _MP_STATE.clear()
+    return results
+
+
+def _device_stages(mapper, index, params, device=None):
+    """Set `mapper.device_l1` / `mapper.device_l2` for this target subset
+    from the environment.
+
+    WFMASH_TPU_DEVICE_L1: "1" = the batched torch program of
+    map/l1_device.py on `device` (default: device.py's), "0" = host stages.
+    Unset: "1" when that device is a CUDA card, "0" when it is the CPU.
+    "mesh" (the L1 sharded over several devices) is not part of this
+    package yet. The device L2 (map/l2_device.py) rides with the device
+    L1; WFMASH_TPU_DEVICE_L2=0 forces the host walk. A device stage that
+    cannot be built, or fails, fails the run."""
+    import os
+
+    from . import device as device_mod
+
+    device = device_mod.resolve(device)
+    mode = os.environ.get("WFMASH_TPU_DEVICE_L1")
+    if mode is None:
+        mode = "1" if device.type == "cuda" else "0"
+    mapper.device_l1 = mapper.device_l2 = None
+    if mode == "0":
+        return
+    if mode == "mesh":
+        raise NotImplementedError(
+            "WFMASH_TPU_DEVICE_L1=mesh: the sharded device L1 "
+            "(ShardedDeviceL1 over several GPUs) is not ported yet; "
+            "ROADMAP.md queues it with the multi-GPU slice. Use "
+            "WFMASH_TPU_DEVICE_L1=1 (one device) or 0 (host stages).")
+    from .map.l1_device import DeviceL1
+
+    mapper.device_l1 = DeviceL1(index, mapper._group_arr, params,
+                                mapper.sketch_cutoffs, device=device)
+    if os.environ.get("WFMASH_TPU_DEVICE_L2", "1") != "0":
+        from .map.l2_device import DeviceL2
+
+        mapper.device_l2 = DeviceL2(index, params, device=device)
 
 def filtered_names(names, prefixes, single_prefix=""):
     if single_prefix:
@@ -70,7 +239,8 @@ def filtered_names(names, prefixes, single_prefix=""):
     return list(names)
 
 
-def run_mapping(params: MapParams, out, scaffold_writer=None) -> None:
+def run_mapping(params: MapParams, out, scaffold_writer=None,
+                device=None) -> None:
     idm = SequenceIdManager(
         params.query_sequences,
         params.ref_sequences,
@@ -164,10 +334,7 @@ def run_mapping(params: MapParams, out, scaffold_writer=None) -> None:
         else:
             index = build_subset(subset)
 
-        # Mapping runs the host stages only (native winnowing, L1/L2 walk
-        # and filters). The reference's device L1/L2 programs
-        # (map/l1_device.py, map/l2_device.py) are not part of this
-        # package yet; ROADMAP.md lists them as the next slice.
+        _device_stages(mapper, index, params, device)
 
         from .utils.progress import ProgressMeter
 
@@ -196,7 +363,12 @@ def run_mapping(params: MapParams, out, scaffold_writer=None) -> None:
         import os as _os
 
         results = None
-        if (params.threads > 1 and len(query_names) > 1
+        if mapper.device_l1 is not None:
+            # phase-structured pipeline: the device stages run in the
+            # parent only; sketching and L2/filters fork-pool around them
+            results = _map_queries_device(
+                mapper, index, query_readers, query_names, params, meter)
+        elif (params.threads > 1 and len(query_names) > 1
                 and (_os.cpu_count() or 1) > 1):
             try:
                 import multiprocessing as mp_mod
