@@ -41,7 +41,19 @@ Phases (any failure exits non-zero; nothing is caught):
    that of one more run with WFMASH_TPU_DEVICE_L1=0 (host mapping) and,
    on the default path, to that of a run with `-t 4` (forked workers
    beside the CUDA context); a run that passed its gates is made once
-   more under torch.profiler for the card's busy share (reported only).
+   more under torch.profiler for the card's busy share (reported only);
+9. the multi-device paths (wfmash_tpu_torch/parallel/) over eight logical
+   shards of cuda:0, and over the machine's cards too where it has more
+   than one: one chunk of every tier split over the shards (kernel A
+   launched once a shard, runs and out16 byte-equal to the unsharded
+   solve), ShardedDeviceL1 over a (2, 4) mesh on every fragment of the
+   pair (equal to the native host stage where it answers, rows left to
+   the host by the reference's rule), diagonal_sharded_wfa_steps (K =
+   2048) and data_parallel_wfa_steps bit-equal to advance_torch
+   unsharded, the CLI with WFMASH_TPU_DEVICE_L1=mesh and
+   WFMASH_TPU_ALIGN_MESH=force (PAF byte-equal to the default run's, more
+   than 15 kernel-A launches, replay and coverage; then once more under
+   the profiler), entry() and dryrun_multichip(8).
 The last lines are the card line, the kernel table as JSON, and the
 result as JSON.
 
@@ -988,6 +1000,22 @@ def _engine_switch(segmented):
         del os.environ["WFMASH_TPU_SEGMENTED"]
 
 
+@contextlib.contextmanager
+def _env(**env):
+    """`env` set in os.environ for the block, and the old values put
+    back."""
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
 def _run_cli(argv, out_paf, segmented, **env):
     """One in-process run of the port's CLI with its output in out_paf and
     `env` set for its duration; the run's messages go on to the standard
@@ -997,24 +1025,53 @@ def _run_cli(argv, out_paf, segmented, **env):
     from wfmash_tpu_torch import cli
 
     err = io.StringIO()
-    before = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     try:
         t0 = time.monotonic()
         with open(out_paf, "w") as fh, contextlib.redirect_stdout(fh), \
-                contextlib.redirect_stderr(err), _engine_switch(segmented):
+                contextlib.redirect_stderr(err), _engine_switch(segmented), \
+                _env(**env):
             rc = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     finally:
-        for k, v in before.items():
-            if v is None:
-                del os.environ[k]
-            else:
-                os.environ[k] = v
         sys.stderr.write(err.getvalue())
     m = re.search(r"mapping done in ([0-9.]+)s", err.getvalue())
     return rc, wall, float(m.group(1)) if m else float("nan")
+
+
+def _check_paf(tag, out_paf, pair):
+    """The aligned rows of out_paf: N_SAMPLE sampled CIGARs must replay
+    exactly and the rows must cover MIN_COVERAGE of the query."""
+    from wfmash_tpu_torch.align import cigar as C
+    from wfmash_tpu_torch.sketch.kmers import reverse_complement
+
+    anc_b, der_b = pair[2:]
+    rows = [ln for ln in open(out_paf) if "\tcg:Z:" in ln]
+    if not rows:
+        raise RuntimeError("no aligned rows")
+    der_rc = bytes(reverse_complement(np.frombuffer(der_b, np.uint8)))
+    pick = np.random.default_rng(0).choice(
+        len(rows), min(N_SAMPLE, len(rows)), replace=False)
+    for i in pick:
+        f = rows[int(i)].rstrip("\n").split("\t")
+        ops = C.parse(next(c[5:] for c in f[12:] if c.startswith("cg:Z:")))
+        qs, qe, ts = int(f[2]), int(f[3]), int(f[7])
+        q, q_start = (der_rc, len(der_b) - qe) if f[4] == "-" else (der_b, qs)
+        if not C.validate(ops, q, anc_b, q_start, ts):
+            raise RuntimeError(f"CIGAR replay failed on row {i}")
+    iv = sorted((int(ln.split("\t")[2]), int(ln.split("\t")[3]))
+                for ln in rows)
+    cov = end = 0
+    for a, b in iv:
+        a = max(a, end)
+        if b > a:
+            cov += b - a
+            end = b
+    cov_frac = cov / len(der_b)
+    log(f"[{tag}] {len(rows)} rows, {len(pick)} sampled CIGARs replay "
+        f"exactly, query coverage {cov_frac:.4f}")
+    if cov_frac < MIN_COVERAGE:
+        raise RuntimeError(f"coverage {cov_frac:.4f} < {MIN_COVERAGE}")
 
 
 def e2e_phase(tmp, pair, segmented=True):
@@ -1023,9 +1080,7 @@ def e2e_phase(tmp, pair, segmented=True):
     through the device stages (the default on a card). Returns the
     launches of (seg_wfa, sweep_wfa), both counted from 0."""
     from wfmash_tpu_torch import cli
-    from wfmash_tpu_torch.align import cigar as C
     from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
-    from wfmash_tpu_torch.sketch.kmers import reverse_complement
     from wfmash_tpu_torch.utils import perf
 
     pt, pq, anc_b, der_b = pair
@@ -1056,32 +1111,7 @@ def e2e_phase(tmp, pair, segmented=True):
                            f"fragments and {left[1]:.4f} of the candidates "
                            "to the host")
 
-    rows = [ln for ln in open(out_paf) if "\tcg:Z:" in ln]
-    if not rows:
-        raise RuntimeError("no aligned rows")
-    der_rc = bytes(reverse_complement(np.frombuffer(der_b, np.uint8)))
-    pick = np.random.default_rng(0).choice(
-        len(rows), min(N_SAMPLE, len(rows)), replace=False)
-    for i in pick:
-        f = rows[int(i)].rstrip("\n").split("\t")
-        ops = C.parse(next(c[5:] for c in f[12:] if c.startswith("cg:Z:")))
-        qs, qe, ts = int(f[2]), int(f[3]), int(f[7])
-        q, q_start = (der_rc, len(der_b) - qe) if f[4] == "-" else (der_b, qs)
-        if not C.validate(ops, q, anc_b, q_start, ts):
-            raise RuntimeError(f"CIGAR replay failed on row {i}")
-    iv = sorted((int(ln.split("\t")[2]), int(ln.split("\t")[3]))
-                for ln in rows)
-    cov = end = 0
-    for a, b in iv:
-        a = max(a, end)
-        if b > a:
-            cov += b - a
-            end = b
-    cov_frac = cov / len(der_b)
-    log(f"[{tag}] {len(rows)} rows, {len(pick)} sampled CIGARs replay "
-        f"exactly, query coverage {cov_frac:.4f}")
-    if cov_frac < MIN_COVERAGE:
-        raise RuntimeError(f"coverage {cov_frac:.4f} < {MIN_COVERAGE}")
+    _check_paf(tag, out_paf, pair)
 
     # the same command with the host mapping, and (default path) with four
     # workers forked beside the CUDA context: the same bytes
@@ -1134,6 +1164,337 @@ def e2e_phase(tmp, pair, segmented=True):
     return launches
 
 
+MESH_SHARDS = 8        # logical shards of cuda:0 in the mesh phase
+MESH_DIAG_K = 2048     # band of the diagonal-sharded problem
+MESH_DIAG_LEVELS = 300
+MESH_DP_LEVELS = 200   # levels of the data-parallel batch
+
+
+@contextlib.contextmanager
+def _mesh_devices(devs):
+    """parallel.mesh.mesh_devices replaced in-process by `devs` (how a CLI
+    run gets logical shards), and put back."""
+    from wfmash_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.mesh_devices
+    mesh_mod.mesh_devices = lambda device=None: list(devs)
+    try:
+        yield
+    finally:
+        mesh_mod.mesh_devices = real
+
+
+def _sync_all(devs):
+    import torch
+
+    for d in sorted({d.index for d in devs}):
+        torch.cuda.synchronize(d)
+
+
+def _mesh_ms(fn, devs, reps):
+    """ms a call of fn: CUDA events when every device is one card, else
+    the host clock between synchronisations of all the cards."""
+    if len(set(devs)) == 1:
+        return _cuda_ms(fn, reps)
+    _sync_all(devs)
+    t0 = time.monotonic()
+    for _ in range(reps):
+        out = fn()
+    _sync_all(devs)
+    return (time.monotonic() - t0) * 1e3 / reps, out
+
+
+def mesh_tier_phase(p, devs, rng, tag):
+    """Kernel A sharded: one chunk of each tier through the tiers of
+    a TieredSegmentSolver with a mesh over devs, against the unsharded
+    solve on devs[0]: runs and out16 byte-equal. Returns the launches of
+    the sharded dispatches."""
+    import torch
+
+    from wfmash_tpu_torch.align import wfa_seg
+    from wfmash_tpu_torch.parallel.mesh import Mesh
+
+    dev = devs[0]
+    mesh = Mesh(devs, ("data",))
+    base = wfa_seg.TieredSegmentSolver(p, dev).tiers
+    sharded = wfa_seg.TieredSegmentSolver(p, dev, mesh=mesh).tiers
+    launches = 0
+    for no, (one, sh) in enumerate(zip(base, sharded)):
+        if sh.mesh is None:
+            log(f"[mesh {tag} t{no + 1}] not sharded: {len(devs)} devices "
+                f"do not divide groups = {sh.groups}")
+            continue
+        jobs, caps = tier_jobs(rng, no)
+        idxs = [i for i, (q, t, ef) in enumerate(jobs)
+                if one.accepts(len(q), len(t), ef)][:one.max_call]
+        want = one._dispatch_chunk(idxs, jobs, caps)
+        n0 = wfa_seg.LAUNCHES
+        got = sh._dispatch_chunk(idxs, jobs, caps)
+        n_launch = wfa_seg.LAUNCHES - n0
+        launches += n_launch
+        same = all(np.array_equal(wfa_seg._host(got[k]),
+                                  wfa_seg._host(want[k]))
+                   for k in ("runs_full", "out16"))
+        buf, _ = one.pack_chunk(idxs, jobs, caps)
+        kw = dict(penalties=p, K=one.K, smax=one.smax, maxr=one.maxr)
+        whole = torch.from_numpy(buf).to(dev)
+        one_ms, _ = _cuda_ms(lambda: wfa_seg.run_seg(whole, **kw), 3)
+        chunk_ms, _ = _mesh_ms(lambda: wfa_seg._run_seg_sharded(
+            buf, len(idxs), devs, **kw), devs, 3)
+        per = buf.shape[0] // len(devs)
+        n_ranges = -(-len(idxs) // per)      # ranges that hold job rows
+        shard_ms = []
+        for i, d in enumerate(devs[:n_ranges]):
+            part = torch.from_numpy(buf[i * per:(i + 1) * per]).to(d)
+            with torch.cuda.device(d):
+                shard_ms.append(_cuda_ms(
+                    lambda: wfa_seg.run_seg(part, **kw), 3)[0])
+        log(f"[mesh {tag} t{no + 1}] K={one.K} rows={buf.shape[0]} "
+            f"jobs={len(idxs)} over {len(devs)} devices: {n_launch} "
+            f"launches of {per} rows, runs "
+            f"and out16 {'byte-equal' if same else 'DIFFER'} to the "
+            f"unsharded solve; a shard's kernel "
+            f"{min(shard_ms):.3f}-{max(shard_ms):.3f} ms (sum "
+            f"{sum(shard_ms):.3f}), the sharded chunk {chunk_ms:.3f} ms "
+            f"with its uploads, unsharded kernel {one_ms:.3f} ms")
+        if not same or n_launch != n_ranges:
+            raise RuntimeError(f"tier t{no + 1}: the sharded chunk differs "
+                               f"or took {n_launch} launches")
+    return launches
+
+
+def mesh_l1_phase(pair, devs):
+    """ShardedDeviceL1 over a (2, n/2) mesh on every fragment of the pair:
+    equal to the native host stage wherever it answers, and leaving to the
+    host exactly the rows the reference's rule leaves: those one device
+    leaves, and those whose endpoints in one shard's hash range pass
+    cap // n_shard."""
+    import torch
+
+    from wfmash_tpu_torch.map.l1_device import DeviceL1, _order_key
+    from wfmash_tpu_torch.parallel.mesh import ShardedDeviceL1, make_mesh
+    from wfmash_tpu_torch.utils import perf
+
+    mp, mapper, index, entries, frags = _map_setup(pair)
+    mesh = make_mesh(2, len(devs) // 2, devs)
+    sd = ShardedDeviceL1(index, mapper._group_arr, mp, mapper.sketch_cutoffs,
+                         mesh)
+    _sync_all(devs)
+    perf.reset()
+    t0 = time.monotonic()
+    got = sd.candidates(frags)
+    _sync_all(devs)
+    wall = time.monotonic() - t0
+    calls = int(perf.get("map.device_calls"))
+    single = DeviceL1(index, mapper._group_arr, mp, mapper.sketch_cutoffs,
+                      device=devs[0]).candidates(frags)
+    host = [[(c.seq_id, c.range_start, c.range_end, c.intersection_size)
+             for c in mapper._host_l1(sk, q_len, f["q_seqid"], f["q_group"],
+                                      f["min_hits"], index)]
+            for (_, q_len, sk, _), f in zip(entries, frags)]
+    uh = _order_key(np.asarray(index.unique_hashes))
+    offs = np.asarray(index.endpoint_offsets, np.int64)
+    cap_l = sd.cap // sd.n_shard
+    want_none = []
+    for f, s in zip(frags, single):
+        keys = _order_key(np.asarray(f["hashes"], np.uint64))
+        idx = np.searchsorted(uh, keys).clip(max=len(uh) - 1)
+        hit = uh[idx] == keys
+        n_ep = np.where(hit, offs[idx + 1] - offs[idx], 0)
+        shard = np.searchsorted(sd.bounds, idx, side="right") - 1
+        per_shard = np.bincount(shard, weights=n_ep, minlength=sd.n_shard)
+        want_none.append(s is None or bool((per_shard > cap_l).any()))
+    n_dev = sum(g is not None for g in got)
+    bad = sum(g is not None and g != h for g, h in zip(got, host))
+    bad_rule = sum((g is None) != w for g, w in zip(got, want_none))
+    share = n_dev / len(frags)
+    log(f"[mesh L1] ShardedDeviceL1 on a {mesh.shape} mesh of "
+        f"{len(set(devs))} device(s): {len(frags)} fragments, {calls} "
+        f"calls, {wall * 1e3:.0f} ms, answered {n_dev} ({100 * share:.2f}%)"
+        f"; rows differing from the native host stage {bad}, rows whose "
+        f"host route differs from the reference's rule {bad_rule}; "
+        f"shard_ep_counts {sd.shard_ep_counts}")
+    if bad or bad_rule or share < MIN_DEVICE_SHARE:
+        raise RuntimeError(f"sharded L1: {bad} rows differ, {bad_rule} "
+                           f"break the overflow rule, share {share:.4f}")
+
+
+def _wave_inputs(pairs, K, R, dev):
+    """advance_torch's inputs for byte pairs: rows padded with 0x01 / 0x02,
+    a score-0 seed on the centre lane, target-axis splits."""
+    import torch
+
+    from wfmash_tpu_torch.align.wfa_sweep import NEG_I
+
+    B = len(pairs)
+    L = -(-(max(max(len(q), len(t)) for q, t in pairs) + 8) // 64) * 64
+    query = np.full((B, L), 0x01, np.uint8)
+    target = np.full((B, L), 0x02, np.uint8)
+    for i, (q, t) in enumerate(pairs):
+        query[i, :len(q)] = np.frombuffer(q, np.uint8)
+        target[i, :len(t)] = np.frombuffer(t, np.uint8)
+    qlen = torch.tensor([len(q) for q, _ in pairs], dtype=torch.int32,
+                        device=dev)
+    tlen = torch.tensor([len(t) for _, t in pairs], dtype=torch.int32,
+                        device=dev)
+    off = torch.full((B, R, 5, K), NEG_I, dtype=torch.int32, device=dev)
+    off[:, 0, 0, K // 2] = 0
+    anc = torch.full((B, R, 5, K), -1, dtype=torch.int32, device=dev)
+    return ((off, anc, anc.clone(),
+             torch.full((B, R, 4, K), -1, dtype=torch.int32, device=dev)),
+            (torch.from_numpy(query).to(dev), torch.from_numpy(target).to(dev),
+             qlen, tlen, torch.zeros(B, dtype=torch.bool, device=dev),
+             tlen // 2))
+
+
+def mesh_wavefront_phase(p, devs, rng):
+    """diagonal_sharded_wfa_steps on one problem (K = 2048 over the
+    devices) and data_parallel_wfa_steps on a batch, each bit-equal to
+    advance_torch unsharded on the card."""
+    import torch
+
+    from wfmash_tpu_torch.align.wfa_sweep import (NEG_I, advance_torch,
+                                                  ring_size)
+    from wfmash_tpu_torch.parallel.mesh import (Mesh, data_parallel_wfa_steps,
+                                                diagonal_sharded_wfa_steps)
+
+    dev = devs[0]
+    R = ring_size(p)
+    mesh = Mesh(devs, ("data",))
+    K = MESH_DIAG_K
+    state, seq = _wave_inputs([_pair(rng, 6000, 6001, 0.03, 0.003)], K, R,
+                              dev)
+    t0 = time.monotonic()
+    one = state
+    for s in range(1, MESH_DIAG_LEVELS + 1):
+        one = advance_torch(*one, s, *seq, K, R, p)[:4]
+    _sync_all(devs)
+    one_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    got = diagonal_sharded_wfa_steps(*state, *seq, mesh, MESH_DIAG_LEVELS, p)
+    _sync_all(devs)
+    sh_s = time.monotonic() - t0
+    same = all(torch.equal(a, b) for a, b in zip(one, got))
+    live = (one[0][0, MESH_DIAG_LEVELS % R, 0] > NEG_I).cpu().numpy()
+    per = K // len(devs)
+    by_shard = [int(live[i * per:(i + 1) * per].sum())
+                for i in range(len(devs))]
+    log(f"[mesh diagonal] one {int(seq[2][0])} x {int(seq[3][0])} problem, "
+        f"K={K} over {len(devs)} shards, {MESH_DIAG_LEVELS} levels: rings "
+        f"and anchors {'bit-equal' if same else 'DIFFER'} to advance_torch "
+        f"unsharded; live lanes at the last level {int(live.sum())} "
+        f"(per shard {by_shard}); wall {sh_s:.2f} s sharded, {one_s:.2f} s "
+        "unsharded")
+    if not same or not live.any():
+        raise RuntimeError("diagonal-sharded steps differ from unsharded")
+    Kd = 256
+    state, seq = _wave_inputs([_pair(rng, 1000, 2000, 0.04, 0.004)[:2]
+                               for _ in range(4 * len(devs))], Kd, R, dev)
+    t0 = time.monotonic()
+    want = data_parallel_wfa_steps(state[0], *seq[:4], Mesh([dev], ("data",)),
+                                   MESH_DP_LEVELS, p)
+    _sync_all(devs)
+    one_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    got = data_parallel_wfa_steps(state[0], *seq[:4], mesh, MESH_DP_LEVELS, p)
+    _sync_all(devs)
+    sh_s = time.monotonic() - t0
+    same = torch.equal(want, got)
+    log(f"[mesh data-parallel] {state[0].shape[0]} problems of 1-2 kb, "
+        f"K={Kd}, {MESH_DP_LEVELS} levels over {len(devs)} shards: offsets "
+        f"{'bit-equal' if same else 'DIFFER'} to one device; wall "
+        f"{sh_s:.2f} s sharded, {one_s:.2f} s unsharded")
+    if not same:
+        raise RuntimeError("data-parallel steps differ from unsharded")
+
+
+def mesh_cli_phase(tmp, pair, devs):
+    """The CLI on the pair on the default path, then with the mesh routes
+    (WFMASH_TPU_DEVICE_L1=mesh, WFMASH_TPU_ALIGN_MESH=force) over devs:
+    the same PAF bytes, replay and coverage, and more kernel-A launches.
+    Returns the mesh run's kernel-A launches."""
+    from wfmash_tpu_torch import cli
+    from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
+    from wfmash_tpu_torch.utils import perf
+
+    pt, pq = pair[:2]
+    mesh_env = dict(WFMASH_TPU_DEVICE_L1="mesh",
+                    WFMASH_TPU_ALIGN_MESH="force")
+    pafs, launches = {}, {}
+    for name, env in (("default", {}), ("mesh", mesh_env)):
+        out = os.path.join(tmp, f"mesh-{name}.paf")
+        perf.reset()
+        wfa_seg.LAUNCHES = wfa_sweep.LAUNCHES = 0
+        with _mesh_devices(devs):
+            rc, wall, map_s = _run_cli([pt, pq, "-t", "1"], out, True, **env)
+        launches[name] = (wfa_seg.LAUNCHES, wfa_sweep.LAUNCHES)
+        snap = perf.snapshot()
+        log(f"[mesh e2e {name}] exit {rc}, wall {wall:.2f} s, mapping done "
+            f"in {map_s:.2f} s, seg_wfa launches {launches[name][0]}, "
+            f"sweep_wfa launches {launches[name][1]}, device L1 calls "
+            f"{int(snap.get('map.device_calls', 0))}, rows left to the host "
+            f"{int(snap.get('map.l1_host_rows', 0))} of "
+            f"{int(snap.get('map.l1_rows', 0))}, align.device_calls "
+            f"{int(snap.get('align.device_calls', 0))}")
+        if rc != 0:
+            raise RuntimeError(f"mesh e2e {name}: exit {rc}")
+        _check_paf(f"mesh e2e {name}", out, pair)
+        pafs[name] = open(out, "rb").read()
+    same = pafs["mesh"] == pafs["default"]
+    log(f"[mesh e2e] PAF of the mesh run {'byte-equal' if same else 'DIFFERS'}"
+        f" to the default run's; seg_wfa launches {launches['mesh'][0]} "
+        f"against {launches['default'][0]}")
+    if not same or launches["mesh"][0] <= 15:
+        raise RuntimeError("the mesh run writes another PAF or launched "
+                           f"kernel A {launches['mesh'][0]} times")
+    with _mesh_devices(devs), _env(WFMASH_TPU_SEGMENTED="auto", **mesh_env):
+        _busy_share("mesh e2e", lambda: cli.main([pt, pq, "-t", "1"]))
+    return launches["mesh"][0]
+
+
+def mesh_dryrun_phase(devs):
+    import torch
+
+    from wfmash_tpu_torch.parallel import dryrun
+
+    fn, args = dryrun.entry(devs[0])
+    t0 = time.monotonic()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[mesh dryrun] entry() ran on {devs[0]}: {tuple(out.shape)} in "
+        f"{(time.monotonic() - t0) * 1e3:.0f} ms")
+    dryrun.dryrun_multichip(len(devs), devs)
+
+
+def mesh_phase(p, tmp, pair, rng):
+    """Every multi-device path over eight logical shards of cuda:0, and
+    over the machine's cards too where it has more than one. Returns the
+    mesh CLI run's kernel-A launches."""
+    import torch
+
+    logical = [torch.device("cuda", 0)] * MESH_SHARDS
+    t0 = time.monotonic()
+    tier_launches = mesh_tier_phase(p, logical, rng, "logical")
+    mesh_l1_phase(pair, logical)
+    mesh_wavefront_phase(p, logical, rng)
+    cli_launches = mesh_cli_phase(tmp, pair, logical)
+    mesh_dryrun_phase(logical)
+    n = torch.cuda.device_count()
+    if n > 1:
+        cards = [torch.device("cuda", i) for i in range(n)]
+        mesh_tier_phase(p, cards, rng, "cards")
+        if n % 2 == 0:
+            mesh_l1_phase(pair, cards)
+        mesh_dryrun_phase(cards)
+    else:
+        log("[mesh] one card: the multi-device paths ran over eight logical "
+            "shards of cuda:0 only")
+    log(f"[mesh] phase wall {time.monotonic() - t0:.1f} s; kernel-A "
+        f"launches: {tier_launches} over the five tier chunks, "
+        f"{cli_launches} in the mesh CLI run")
+    return cli_launches
+
+
 def kernel_row(name, replaces, launches, rows):
     """One entry of the kernel table from a phase's per-shape rows."""
     bytes_ms = sum(r["bytes_ms"] for r in rows)
@@ -1150,7 +1511,7 @@ def kernel_row(name, replaces, launches, rows):
 
 
 E2E_BP = 6_000_000     # the end-to-end pair's size
-PHASES = ("tiers", "spec", "sweep", "exact", "map", "e2e", "e2e0")
+PHASES = ("tiers", "spec", "sweep", "exact", "map", "e2e", "e2e0", "mesh")
 
 
 def main(argv=None) -> int:
@@ -1182,9 +1543,9 @@ def main(argv=None) -> int:
     sweeps = sweep_phase(p, dev, rng) if "sweep" in phases else None
     if "exact" in phases:
         exact_phase(p, dev, rng)
-    seg_launches = sweep_launches = None
+    seg_launches = sweep_launches = mesh_launches = None
     with tempfile.TemporaryDirectory() as tmp:
-        if {"map", "e2e", "e2e0"} & set(phases):
+        if {"map", "e2e", "e2e0", "mesh"} & set(phases):
             pair = write_pair(tmp, E2E_BP)
         if "map" in phases:
             map_phase(pair, dev)
@@ -1192,6 +1553,8 @@ def main(argv=None) -> int:
             seg_launches, _ = e2e_phase(tmp, pair)
         if "e2e0" in phases:
             _, sweep_launches = e2e_phase(tmp, pair, segmented=False)
+        if "mesh" in phases:
+            mesh_launches = mesh_phase(p, tmp, pair, rng)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}): no result line")
         return 0
@@ -1200,6 +1563,8 @@ def main(argv=None) -> int:
                    seg_launches, tiers),
         kernel_row("sweep_wfa", "wfmash_tpu/align/wfa_pallas.py:140",
                    sweep_launches, sweeps)]
+    # kernel A's launches in the mesh CLI run (eight logical shards)
+    kernels[0]["mesh_launches"] = mesh_launches
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

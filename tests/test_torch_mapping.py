@@ -102,8 +102,15 @@ def test_paf_bytes_equal_the_device_run(pair, device_run, variant):
         assert counters["map.l2_device_calls"] == 1
 
 
-def test_mesh_is_refused_with_a_message(pair):
+def test_mesh_is_refused_with_a_message(pair, device_run):
+    """WFMASH_TPU_DEVICE_L1=mesh was refused until the sharded L1 was
+    ported; it now runs (here over the one CPU device, a (1, 1) mesh;
+    tests/test_torch_mesh_cli.py runs eight shards) and writes the device
+    run's bytes."""
     rc, paf, err = _run(pair, WFMASH_TPU_DEVICE_L1="mesh")
-    assert rc != 0 and paf == ""
-    assert "WFMASH_TPU_DEVICE_L1=mesh" in err and "not ported" in err
+    assert rc == 0, err[-3000:]
+    assert paf == device_run[0]
+    counters = _counters(err)
+    assert counters["map.device_calls"] == 1
+    assert counters["map.l1_host_rows"] == 0
     assert "Traceback" not in err

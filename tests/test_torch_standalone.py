@@ -8,7 +8,9 @@ originals compute.
   the torch programs on CPU tensors), for the default switches (the
   native host engine there),
   for the card's default composition (WFMASH_TPU_SEGMENTED=1) and for
-  WFMASH_TPU_SEGMENTED=0, then look at sys.modules.
+  WFMASH_TPU_SEGMENTED=0, then once more with the mesh routes over eight
+  logical CPU shards (WFMASH_TPU_DEVICE_L1=mesh, WFMASH_TPU_ALIGN_MESH=
+  force), then look at sys.modules.
 * A source scan: no file of the package, nor chip_smoke.py, has an import
   of jax or of wfmash_tpu (wfmash_tpu_torch is allowed).
 * The copied host modules against the originals on seeded inputs where a
@@ -33,10 +35,25 @@ PKG = REPO / "wfmash_tpu_torch"
 
 _CHILD = r"""
 import contextlib, io, json, os, runpy, sys
+import torch
 import wfmash_tpu_torch.cli
+from wfmash_tpu_torch.align import rkmh, wfa_seg
+from wfmash_tpu_torch.parallel import dryrun, mesh
+mesh.mesh_devices = lambda device=None: [torch.device("cpu")] * 8
+sharded = []
+_real = wfa_seg._run_seg_sharded
+def _count(*a, **kw):
+    got = _real(*a, **kw)
+    sharded.append(len(got[1]))
+    return got
+wfa_seg._run_seg_sharded = _count
 out = {}
-for mode, seg in (("default", "auto"), ("segmented", "1"), ("exact", "0")):
-    os.environ["WFMASH_TPU_SEGMENTED"] = seg
+for mode, seg, l1, amesh in (("default", "auto", "1", "0"),
+                             ("segmented", "1", "1", "0"),
+                             ("exact", "0", "1", "0"),
+                             ("mesh", "1", "mesh", "force")):
+    os.environ.update(WFMASH_TPU_SEGMENTED=seg, WFMASH_TPU_DEVICE_L1=l1,
+                      WFMASH_TPU_ALIGN_MESH=amesh)
     sys.argv = ["wfmash_tpu_torch"] + sys.argv[1:]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -55,6 +72,7 @@ out["mapped"] = sorted(m for m in ("l1_device", "l2_device")
 from wfmash_tpu_torch.utils import perf
 out["device_calls"] = [perf.get("map.device_calls"),
                        perf.get("map.l2_device_calls")]
+out["sharded_launches"] = sum(sharded)
 print(json.dumps(out))
 """
 
@@ -78,9 +96,10 @@ def test_cli_runs_both_paths_without_jax_or_reference(tmp_path):
     assert out["bad"] == []
     assert out["ran"] == ["wfa_exact", "wfa_seg", "wfa_sweep"]
     assert out["mapped"] == ["l1_device", "l2_device"]
-    assert min(out["device_calls"]) >= 3        # one of each a CLI run
-    modes = ("default", "segmented", "exact")
-    assert [out[m + "_rc"] for m in modes] == [0, 0, 0]
+    assert min(out["device_calls"]) >= 4        # one of each a CLI run
+    modes = ("default", "segmented", "exact", "mesh")
+    assert [out[m + "_rc"] for m in modes] == [0, 0, 0, 0]
+    assert out["mesh"] == out["segmented"] and out["sharded_launches"] > 0
     for mode in modes:
         rows = [ln for ln in out[mode].splitlines() if "\tcg:Z:" in ln]
         assert rows, mode
@@ -105,9 +124,11 @@ def test_sources_import_neither_jax_nor_the_reference():
            if _IMPORT.search(f.read_text()) or _DYNAMIC.search(f.read_text())]
     assert bad == []
     names = {str(f.relative_to(PKG)) for f in files[:-1]}
-    assert {"map/l1_device.py", "map/l2_device.py"} <= names
-    # the files the port leaves to be ported are not copied
-    for name in ("ops", "parallel", "align/wfa_jax.py", "align/wfa_pallas.py",
+    assert {"map/l1_device.py", "map/l2_device.py", "parallel/mesh.py",
+            "parallel/dryrun.py", "align/rkmh.py"} <= names
+    # the files the port does not copy: ported under other names, or left
+    # out on purpose (the TPU's 64-bit emulation, the JAX compile cache)
+    for name in ("ops", "align/wfa_jax.py", "align/wfa_pallas.py",
                  "align/wfa_pallas_seg.py", "utils/jaxcache.py"):
         assert not (PKG / name).exists(), name
 

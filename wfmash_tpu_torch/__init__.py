@@ -17,8 +17,16 @@ written anew:
   align/wfa_exact.py   ExactWfaEngine: sweeps + host recursion
                        (counterpart of align/wfa_jax.py)
   align/segmented.py   SegmentedEngine over the port's solver
-  align/engine.py      make_engine, run_alignment
-  runner.py            run_mapping on the host stages
+  align/engine.py      make_engine, run_alignment (WFMASH_TPU_ALIGN_MESH
+                       shards the segment tiers)
+  map/l1_device.py,    the mapping's device stages as torch programs
+  map/l2_device.py
+  parallel/mesh.py     several devices in one process: Mesh, the sharded
+                       L1 (WFMASH_TPU_DEVICE_L1=mesh), the sharded
+                       wavefront steps (counterpart of parallel/mesh.py)
+  parallel/dryrun.py   entry() and dryrun_multichip (counterpart of
+                       __graft_entry__.py)
+  runner.py            run_mapping on the host or device stages
   cli.py, __main__.py  `python -m wfmash_tpu_torch target.fa query.fa`
 """
 

@@ -36,6 +36,7 @@ from .biwfa import (AlignmentJob, HostWfaEngine, align_records_batched,
 from .segmented import SegmentedEngine
 from .wfa_exact import ExactWfaEngine
 from .wfa_np import Penalties
+from .wfa_seg import TieredSegmentSolver
 
 
 def log(msg):
@@ -195,7 +196,9 @@ def make_engine(params: AlignParams, device):
     WFMASH_TPU_SEGMENTED=0: ExactWfaEngine alone (exact whole-block
     sweeps with Hirschberg splits; leaves on the segment tiers).
     Otherwise (the default): SegmentedEngine over the kernel tiers with
-    ExactWfaEngine for escalations. The reference's "auto" probes the
+    ExactWfaEngine for escalations; the tiers split their chunks over the
+    devices of `_align_mesh` when it gives a mesh. The reference's "auto"
+    probes the
     device link first; the port runs where it is told, so on a card auto
     means segmented. What is left of the reference's rule is its "no
     accelerator" branch: on the CPU device auto gives the native
@@ -226,10 +229,35 @@ def make_engine(params: AlignParams, device):
     exact.threads = n_threads
     if seg == "0":
         return exact
-    engine = SegmentedEngine(penalties, exact, device)
+    mesh = _align_mesh(device)
+    engine = SegmentedEngine(
+        penalties, exact, device, solver=None if mesh is None else
+        TieredSegmentSolver(penalties, device, mesh=mesh))
     if params.strict_parity:
         engine.detect_inversions = False
     return engine
+
+
+def _align_mesh(device):
+    """The ("data",) mesh the segment tiers shard over, or None.
+
+    WFMASH_TPU_ALIGN_MESH (the reference's `_build_segmented`): "auto"
+    (the default) shards when `mesh_devices` gives more than one distinct
+    CUDA device; "force" also shards over a CPU or repeated-device list of
+    more than one (the tests' and chip_smoke.py's logical shards); "0"
+    turns it off. Only the segmented composition shards, as in the
+    reference: ExactWfaEngine's sweeps stay on `device`."""
+    from ..parallel import mesh as mesh_mod
+
+    mode = os.environ.get("WFMASH_TPU_ALIGN_MESH", "auto")
+    if mode == "0":
+        return None
+    devs = mesh_mod.mesh_devices(device)
+    distinct_cards = len(set(devs)) > 1 and all(
+        d.type == "cuda" for d in devs)
+    if len(devs) > 1 and (mode == "force" or distinct_cards):
+        return mesh_mod.Mesh(devs, ("data",))
+    return None
 
 
 class BudgetedHostEngine(HostWfaEngine):

@@ -20,7 +20,8 @@ I/O contract as the TPU kernel:
   vectorised over problems and diagonals level by level.
 * `SegmentSolver`, `TieredSegmentSolver` and `_StreamSolve` are the
   reference's numpy host side (envelopes, certificates, tier cascade,
-  streaming) with the launch replaced.
+  streaming) with the launch replaced; given a parallel.mesh.Mesh, a tier
+  splits each chunk over its devices (`_run_seg_sharded`).
 
 Two deliberate differences from the TPU kernel, both outside the PAF:
 
@@ -433,6 +434,35 @@ def run_seg(buf: torch.Tensor, *, penalties: Penalties, K: int, smax: int,
 # ---------------------------------------------------------------------------
 
 
+def _run_seg_sharded(buf: np.ndarray, n_rows: int, devices, **kw):
+    """One packed chunk over several devices: the reference's
+    _run_seg_sharded. The rows are cut into len(devices) contiguous
+    ranges, one a device in mesh order; each range that holds one of the
+    chunk's n_rows job rows is uploaded to its device and launched there
+    with run_seg (a range of padding rows alone is not launched: no
+    caller reads its rows). Every launch goes out before any result is
+    read. Returns (runs_full, out16) as lists of the launched ranges'
+    outputs, in row order; a failed launch raises."""
+    per = buf.shape[0] // len(devices)
+    runs, out16 = [], []
+    for i, dev in enumerate(devices):
+        if i * per >= n_rows:
+            break
+        r, o = run_seg(torch.from_numpy(buf[i * per:(i + 1) * per]).to(dev),
+                       **kw)
+        runs.append(r)
+        out16.append(o)
+    return runs, out16
+
+
+def _host(out) -> np.ndarray:
+    """A chunk output, one tensor or a list of a sharded launch's tensors
+    in row order, as one numpy array."""
+    if isinstance(out, list):
+        return torch.cat([t.cpu() for t in out]).numpy()
+    return out.cpu().numpy()
+
+
 def _job_parts(job):
     """Normalize a job tuple: (q, t) or (q, t, ends_free) -> (q, t, ef)."""
     q, t = job[0], job[1]
@@ -475,7 +505,7 @@ _BAND_MARGIN = 16    # lanes kept free of the diagonal interest range
 
 class SegmentSolver:
     """Batched solver for small WFA problems (end-to-end and ends-free) on
-    one device.
+    one device, or with each chunk split over a mesh's devices.
 
     solve(jobs) -> list of RLE CIGARs [(n, op)] (op in '=XID'), or None
     for problems the kernel cannot certify (too long, diagonal interest
@@ -488,7 +518,7 @@ class SegmentSolver:
 
     def __init__(self, penalties: Penalties, device, PB: int = 16,
                  K: int = 256, smax: int = 256, lseg: int = 512,
-                 groups: int = 64):
+                 groups: int = 64, mesh=None):
         self.p = penalties
         self.device = torch.device(device)
         self.PB = PB
@@ -498,6 +528,14 @@ class SegmentSolver:
         self.maxr = 2 * smax + 128
         self.groups = groups
         self.max_call = groups * PB
+        # optional parallel.mesh.Mesh: a chunk's rows split over the
+        # devices of its first axis, as the reference shards a tier only
+        # when that axis has more than one device and divides `groups`
+        self.mesh = None
+        if mesh is not None:
+            n_dev = mesh.shape[mesh.axis_names[0]]
+            if n_dev > 1 and groups % n_dev == 0:
+                self.mesh = mesh
 
     def _envelope(self, m: int, n: int, ef):
         """Fit check. Returns (S, P, tb, qb, te, qe, cert_bound,
@@ -653,9 +691,14 @@ class SegmentSolver:
         buf, meta = self.pack_chunk(idxs, jobs, max_scores)
         if buf is None:
             return meta
-        meta["runs_full"], meta["out16"] = run_seg(
-            torch.from_numpy(buf).to(self.device), penalties=self.p,
-            K=self.K, smax=self.smax, maxr=self.maxr)
+        kw = dict(penalties=self.p, K=self.K, smax=self.smax, maxr=self.maxr)
+        if self.mesh is None:
+            meta["runs_full"], meta["out16"] = run_seg(
+                torch.from_numpy(buf).to(self.device), **kw)
+        else:
+            devices = self.mesh.axis_devices(self.mesh.axis_names[0])
+            meta["runs_full"], meta["out16"] = _run_seg_sharded(
+                buf, len(idxs), devices, **kw)
         return meta
 
     def _collect_chunk(self, disp, results, st, certify, unc):
@@ -664,7 +707,7 @@ class SegmentSolver:
             return                      # statuses stay "envelope"
         maxr = self.maxr
         cap = min(maxr, RUNS_CAP)
-        out16 = disp["out16"].cpu().numpy()
+        out16 = _host(disp["out16"])
         term = out16[:, :NTERM]
         runs_c = out16[:, NTERM:]
         cert_b, cert_always = disp["cert_b"], disp["cert_always"]
@@ -672,12 +715,15 @@ class SegmentSolver:
         # measured swept cells: per problem, levels x K lanes x 5 states
         perf.add("align.device_cells",
                  int(term[:nj_rows, 8].astype(np.int64).sum()) * self.K * 5)
+        # per job row of the last chunk collected, its swept levels (the
+        # dry run's per-device balance reads it)
+        self.last_row_levels = term[:nj_rows, 8].astype(np.int64)
         cur = term[:, 4]
         used = (maxr - 1) - cur.astype(np.int64)
         runs_np = None
         if (used[:nj_rows] > cap).any():
             # rare overflow (deep-divergence CIGARs): one full readback
-            runs_np = disp["runs_full"].cpu().numpy()
+            runs_np = _host(disp["runs_full"])
         # flat-prefix decode: gather only the used entries of this chunk's
         # rows, convert once, slice per row
         used_c = np.minimum(used[:nj_rows], cap)
@@ -739,20 +785,22 @@ class TieredSegmentSolver:
     uncertified band edge); a job failing all returns None for the
     caller's exact-engine escalation."""
 
-    def __init__(self, penalties: Penalties, device, tiers=TIERS):
+    def __init__(self, penalties: Penalties, device, tiers=TIERS,
+                 mesh=None):
         self.p = penalties
         self.tiers = tuple(
             SegmentSolver(penalties, device, PB=pb, K=k, smax=sm, lseg=ls,
-                          groups=g) for pb, k, sm, ls, g in tiers)
+                          groups=g, mesh=mesh)
+            for pb, k, sm, ls, g in tiers)
 
     @classmethod
-    def from_reference(cls, ref, device):
+    def from_reference(cls, ref, device, mesh=None):
         """The port's solver with the tier table of a reference
         wfmash_tpu TieredSegmentSolver (penalties and each tier's PB, K,
         smax, lseg, groups read as plain ints)."""
         return cls(ref.p, device, tiers=tuple(
             (int(t.PB), int(t.K), int(t.smax), int(t.lseg), int(t.groups))
-            for t in ref.tiers))
+            for t in ref.tiers), mesh=mesh)
 
     def accepts(self, qlen: int, tlen: int, ends_free=None) -> bool:
         return any(t.accepts(qlen, tlen, ends_free) for t in self.tiers)

@@ -18,6 +18,10 @@ exact score and a Hirschberg split anchor in O(K) memory:
   _sweep / _extend.
 * `ExactSweeps` is the numpy-facing front end with PallasSweeps' `sweep`
   signature and its five returns.
+* `advance_torch` is one level on explicit state in wfa_jax._advance's
+  layout (int32 rings of every state, an optional lane-to-diagonal map):
+  the unit that parallel/mesh.py shards, a torch program as the
+  reference's is an XLA one.
 
 Two deliberate differences from the TPU kernel and its host loop:
 
@@ -53,6 +57,7 @@ from .wfa_np import Penalties
 
 NEG_I = -(1 << 28)
 UNSET32 = 0xFFFFFFFF
+M_, I1_, I2_, D1_, D2_ = 0, 1, 2, 3, 4     # states of advance_torch's rings
 
 NPAR = 8     # par columns: qlen, tlen, axis_is_query, mid, done0, 0, 0, 0
 # term columns: finished, score, anchor, clipped, levels, wavefront lanes
@@ -350,6 +355,142 @@ def sweep_torch(query: torch.Tensor, target: torch.Tensor,
     term[:, 6] = (lanes >> 31).to(i32)
     term[done0] = 0
     return term
+
+
+# ---------------------------------------------------------------------------
+# One level on explicit state (the sharded paths' unit)
+# ---------------------------------------------------------------------------
+
+
+def ring_size(p: Penalties) -> int:
+    """Score levels the explicit-state rings of `advance_torch` hold (the
+    reference's wfa_jax.ring_size): every state keeps the M ring's depth."""
+    return ring_sizes(p)[0]
+
+
+def advance_torch(off, anc_v, anc_h, open_a, s: int, query, target, qlen,
+                  tlen, axis_is_query, mid, K: int, R: int,
+                  penalties: Penalties, kvec=None):
+    """One score level on explicit state: the counterpart of
+    wfa_jax._advance, in its layout and with its results bit for bit.
+
+    off, anc_v, anc_h: (B, R, 5, K) int32 rings of offsets (NEG_I: none)
+    and crossing anchors (-1: none) of the states M, I1, I2, D1, D2;
+    open_a: (B, R, 4, K) int32 gap-open anchors (-1: none); slot s % R is
+    level s. query/target: (B, L) uint8 byte rows (they stand where the
+    reference has the `make_blocks` words; bytes past a length are never
+    compared). qlen, tlen, mid: (B,) int32; axis_is_query: (B,) bool.
+    kvec: optional (1, K) int32 diagonal of each lane (default lane - K//2);
+    a diagonal-sharded shard passes its own window, halo lanes included.
+    Returns (off, anc_v, anc_h, open_a, done, final_pv, final_ph): new
+    rings (the inputs are not written) and, per problem, whether the M
+    offset on the end diagonal reached qlen, with that cell's anchor.
+    Lanes past the band's ends read as none. `sweep_torch` is the sweep
+    kernel's plain version and keeps the kernel's narrow ring words; this
+    keeps the reference's int32 words."""
+    p = penalties
+    x, o1, e1, o2, e2 = (p.mismatch, p.gap_opening1, p.gap_extension1,
+                         p.gap_opening2, p.gap_extension2)
+    i32 = torch.int32
+    B = off.shape[0]
+    dev = off.device
+    if kvec is None:
+        kvec = (torch.arange(K, dtype=i32, device=dev) - K // 2)[None, :]
+    neg = torch.full((B, K), NEG_I, dtype=i32, device=dev)
+    uns = torch.full((B, K), -1, dtype=i32, device=dev)
+    axis_q = axis_is_query[:, None]
+    midc = mid[:, None]
+
+    def land(score, state, arr, fill):
+        return fill if score < 0 else arr[:, score % R, state, :]
+
+    def sr(a, fill):      # value at k-1
+        return torch.cat([fill[:, :1], a[:, :-1]], dim=1)
+
+    def sl(a, fill):      # value at k+1
+        return torch.cat([a[:, 1:], fill[:, :1]], dim=1)
+
+    def gap_wave(open_score, ext_score, ext_state, gslot, is_ins):
+        sh = sr if is_ins else sl
+        m_src = sh(land(open_score, M_, off, neg), neg)
+        g_src = sh(land(ext_score, ext_state, off, neg), neg)
+        mp_v = sh(land(open_score, M_, anc_v, uns), uns)
+        mp_h = sh(land(open_score, M_, anc_h, uns), uns)
+        gp_v = sh(land(ext_score, ext_state, anc_v, uns), uns)
+        gp_h = sh(land(ext_score, ext_state, anc_h, uns), uns)
+        g_open = sh(land(ext_score, gslot, open_a, uns), uns)
+        use_open = m_src >= g_src                  # tie -> open
+        base = torch.maximum(m_src, g_src)
+        valid = base > NEG_I
+        new_off = torch.where(valid, base + (1 if is_ins else 0), neg)
+        new_pv = torch.where(use_open, mp_v, gp_v)
+        new_ph = torch.where(use_open, mp_h, gp_h)
+        opened = m_src if is_ins else m_src - (kvec + 1)
+        new_open = torch.where(valid, torch.where(use_open, opened, g_open),
+                               uns)
+        if is_ins:
+            crossed = (axis_q & (new_pv == -1) & valid
+                       & (new_off == midc + 1))
+            new_pv = torch.where(crossed, new_off - kvec, new_pv)
+            new_ph = torch.where(crossed, new_open, new_ph)
+        else:
+            crossed = (~axis_q & (new_pv == -1) & valid
+                       & (new_off - kvec == midc + 1))
+            new_pv = torch.where(crossed, new_open, new_pv)
+            new_ph = torch.where(crossed, new_off, new_ph)
+        return new_off, new_pv, new_ph, new_open
+
+    i1 = gap_wave(s - o1 - e1, s - e1, I1_, 0, True)
+    i2 = gap_wave(s - o2 - e2, s - e2, I2_, 1, True)
+    d1 = gap_wave(s - o1 - e1, s - e1, D1_, 2, False)
+    d2 = gap_wave(s - o2 - e2, s - e2, D2_, 3, False)
+
+    mm = land(s - x, M_, off, neg)
+    mm = torch.where(mm > NEG_I, mm + 1, neg)
+    mx_pv = land(s - x, M_, anc_v, uns)
+    crossed = ((mx_pv == -1) & (mm > NEG_I)
+               & ((axis_q & (mm == midc + 1))
+                  | (~axis_q & (mm - kvec == midc + 1))))
+    m_off = mm
+    m_pv = torch.where(crossed, mm - kvec - 1, mx_pv)
+    m_ph = torch.where(crossed, mm - 1, land(s - x, M_, anc_h, uns))
+    for c_off, c_pv, c_ph, _ in (i1, i2, d1, d2):   # first strict maximum
+        better = c_off > m_off
+        m_off = torch.where(better, c_off, m_off)
+        m_pv = torch.where(better, c_pv, m_pv)
+        m_ph = torch.where(better, c_ph, m_ph)
+    v = m_off - kvec
+    okb = ((m_off >= 0) & (m_off <= qlen[:, None]) & (v >= 0)
+           & (v <= tlen[:, None]))
+    m_off = torch.where(okb, m_off, neg)
+    m_pv = torch.where(okb, m_pv, uns)
+    m_ph = torch.where(okb, m_ph, uns)
+
+    m_ext = _extend(m_off, query, target, kvec[0], qlen, tlen)
+    live = m_off > NEG_I
+    cr_t = (~axis_q & (m_pv == -1) & live & (m_off - kvec <= midc)
+            & (m_ext - kvec > midc))
+    m_pv = torch.where(cr_t, midc.expand(B, K), m_pv)
+    m_ph = torch.where(cr_t, midc + kvec, m_ph)
+    cr_q = axis_q & (m_pv == -1) & live & (m_off <= midc) & (m_ext > midc)
+    m_pv = torch.where(cr_q, midc - kvec, m_pv)
+    m_ph = torch.where(cr_q, midc.expand(B, K), m_ph)
+
+    slot = s % R
+    off, anc_v, anc_h, open_a = (a.clone() for a in (off, anc_v, anc_h,
+                                                     open_a))
+    off[:, slot] = torch.stack([m_ext, i1[0], i2[0], d1[0], d2[0]], dim=1)
+    anc_v[:, slot] = torch.stack([m_pv, i1[1], i2[1], d1[1], d2[1]], dim=1)
+    anc_h[:, slot] = torch.stack([m_ph, i1[2], i2[2], d1[2], d2[2]], dim=1)
+    open_a[:, slot] = torch.stack([i1[3], i2[3], d1[3], d2[3]], dim=1)
+
+    # the end diagonal's lane in this window (clipped into it)
+    d_end = (qlen - tlen - kvec[0, 0]).clamp(0, K - 1).to(torch.int64)[:,
+                                                                       None]
+    final_off = m_ext.gather(1, d_end)[:, 0]
+    done = final_off >= qlen
+    return (off, anc_v, anc_h, open_a, done, m_pv.gather(1, d_end)[:, 0],
+            m_ph.gather(1, d_end)[:, 0])
 
 
 def term_lanes(term: np.ndarray) -> np.ndarray:

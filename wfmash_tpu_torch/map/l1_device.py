@@ -282,6 +282,47 @@ def _sweep_candidates(pos, seq, side, grp, min_hits, sketch_size,
     return cand, ncand.clamp(max=maxc), nruns > maxc
 
 
+def pack_fragments(frags):
+    """The L1 stage's host arrays for a list of fragment dicts: (qh keys
+    (B, S) as wide as the longest sketch, q_nh (B,), meta (B, 4) of
+    q_group, q_seqid, min_hits, sketch size)."""
+    B = len(frags)
+    S = max(max(len(f["hashes"]) for f in frags), 1)
+    qh = np.full((B, S), np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
+    q_nh = np.zeros(B, np.int32)
+    meta = np.zeros((B, 4), np.int32)
+    for i, f in enumerate(frags):
+        h = np.asarray(f["hashes"], np.uint64)
+        qh[i, :len(h)] = h
+        q_nh[i] = len(h)
+        meta[i] = (f["q_group"], f["q_seqid"], f["min_hits"], f["n"])
+    return _order_key(qh), q_nh, meta
+
+
+def answer_rows(frags, cand, ncand, overflow, params):
+    """Per fragment, its candidate list [(seq, start, end, inter)] from a
+    chunk's results brought to the host (cand as nested lists at least
+    max(ncand) wide, ncand and overflow as lists), or None for the host
+    route; counts the rows seen and left to the host."""
+    from ..utils import perf
+
+    out = []
+    for i, f in enumerate(frags):
+        # tail fragments (q_len != window) need the windowed hash-dedup
+        # branch of the L1 sweep (l1l2.py, mappingCore.hpp windowLen !=
+        # 0), which this batched sweep does not implement: those (at most
+        # one per query) go to the identical host path, as do overflowed
+        # rows and non-full-scan modes.
+        if overflow[i] or f["q_len"] != params.window_length \
+                or not params.stage2_full_scan:
+            out.append(None)
+            continue
+        out.append([tuple(r) for r in cand[i][:ncand[i]]])
+    perf.add("map.l1_rows", len(frags))
+    perf.add("map.l1_host_rows", sum(r is None for r in out))
+    return out
+
+
 def _l1_kernel(qh, q_nh, uh, offs, ep_pos, ep_seq, ep_side, seq_group,
                q_group, q_seqid, skip_grp, lower_tri, min_hits,
                sketch_size, cutoffs, cut_div, cluster_len,
@@ -353,19 +394,8 @@ class DeviceL1:
         return out
 
     def _pack(self, frags):
-        """The chunk's host arrays: (qh keys (B, S), q_nh (B,), meta (B, 4)
-        of q_group, q_seqid, min_hits, sketch size)."""
-        B = len(frags)
-        S = max(max(len(f["hashes"]) for f in frags), 1)
-        qh = np.full((B, S), np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
-        q_nh = np.zeros(B, np.int32)
-        meta = np.zeros((B, 4), np.int32)
-        for i, f in enumerate(frags):
-            h = np.asarray(f["hashes"], np.uint64)
-            qh[i, :len(h)] = h
-            q_nh[i] = len(h)
-            meta[i] = (f["q_group"], f["q_seqid"], f["min_hits"], f["n"])
-        return _order_key(qh), q_nh, meta
+        """The chunk's host arrays (`pack_fragments`)."""
+        return pack_fragments(frags)
 
     def _run(self, qh, q_nh, meta):
         """_l1_kernel on this object's device for packed host arrays;
@@ -389,7 +419,6 @@ class DeviceL1:
 
         from ..utils import perf
 
-        p = self.params
         if not frags:
             return []
         packed = self._pack(frags)
@@ -400,20 +429,4 @@ class DeviceL1:
         cand = cand[:, :max(ncand)].cpu().tolist()
         perf.add("map.device_s", time.monotonic() - t0)
         perf.add("map.device_calls", 1)
-        out = []
-        for i, f in enumerate(frags):
-            # tail fragments (q_len != window) need the windowed
-            # hash-dedup branch of the L1 sweep (l1l2.py, mappingCore.hpp
-            # windowLen != 0), which this batched sweep does not
-            # implement: those (at most one per query) go to the
-            # identical host path, as do overflowed rows and
-            # non-full-scan modes.
-            if overflow[i] or f["q_len"] != p.window_length \
-                    or not p.stage2_full_scan:
-                out.append(None)
-                continue
-            out.append([tuple(r) for r in cand[i][:ncand[i]]])
-        # rows seen, and rows left to the host stage
-        perf.add("map.l1_rows", len(frags))
-        perf.add("map.l1_host_rows", sum(r is None for r in out))
-        return out
+        return answer_rows(frags, cand, ncand, overflow, self.params)

@@ -201,10 +201,12 @@ def _device_stages(mapper, index, params, device=None):
     WFMASH_TPU_DEVICE_L1: "1" = the batched torch program of
     map/l1_device.py on `device` (default: device.py's), "0" = host stages.
     Unset: "1" when that device is a CUDA card, "0" when it is the CPU.
-    "mesh" (the L1 sharded over several devices) is not part of this
-    package yet. The device L2 (map/l2_device.py) rides with the device
-    L1; WFMASH_TPU_DEVICE_L2=0 forces the host walk. A device stage that
-    cannot be built, or fails, fails the run."""
+    "mesh" = parallel/mesh.py's ShardedDeviceL1 over the devices that
+    `mesh_devices(device)` gives, as a (2, n // 2) mesh when there are two
+    or more and (1, 1) otherwise. The device L2 (map/l2_device.py, on
+    `device`) rides with the device L1; WFMASH_TPU_DEVICE_L2=0 forces the
+    host walk. A device stage that cannot be built, or fails, fails the
+    run: there is no fallback to the host stages."""
     import os
 
     from . import device as device_mod
@@ -217,15 +219,18 @@ def _device_stages(mapper, index, params, device=None):
     if mode == "0":
         return
     if mode == "mesh":
-        raise NotImplementedError(
-            "WFMASH_TPU_DEVICE_L1=mesh: the sharded device L1 "
-            "(ShardedDeviceL1 over several GPUs) is not ported yet; "
-            "ROADMAP.md queues it with the multi-GPU slice. Use "
-            "WFMASH_TPU_DEVICE_L1=1 (one device) or 0 (host stages).")
-    from .map.l1_device import DeviceL1
+        from .parallel import mesh as mesh_mod
 
-    mapper.device_l1 = DeviceL1(index, mapper._group_arr, params,
-                                mapper.sketch_cutoffs, device=device)
+        devs = mesh_mod.mesh_devices(device)
+        n_shard = 2 if len(devs) >= 2 else 1
+        mapper.device_l1 = mesh_mod.ShardedDeviceL1(
+            index, mapper._group_arr, params, mapper.sketch_cutoffs,
+            mesh_mod.make_mesh(n_shard, len(devs) // n_shard, devs))
+    else:
+        from .map.l1_device import DeviceL1
+
+        mapper.device_l1 = DeviceL1(index, mapper._group_arr, params,
+                                    mapper.sketch_cutoffs, device=device)
     if os.environ.get("WFMASH_TPU_DEVICE_L2", "1") != "0":
         from .map.l2_device import DeviceL2
 
