@@ -53,7 +53,18 @@ Phases (any failure exits non-zero; nothing is caught):
    unsharded, the CLI with WFMASH_TPU_DEVICE_L1=mesh and
    WFMASH_TPU_ALIGN_MESH=force (PAF byte-equal to the default run's, more
    than 15 kernel-A launches, replay and coverage; then once more under
-   the profiler), entry() and dryrun_multichip(8).
+   the profiler), entry() and dryrun_multichip(8);
+10. golden: every case of tests/torch_golden/manifest.json, output bytes
+   that the JAX package's CLI wrote on the CPU (scripts/torch_golden.py):
+   each case's inputs made anew with this file's copy of the generators
+   (a hash other than the manifest's is "input drift", not a fault of the
+   port), the port's CLI in-process on the card, mapping through the
+   device stages, and its output byte-equal to the golden (M1 also with
+   WFMASH_TPU_DEVICE_L1=0; A0 is the e2e phase's own run, the same argv
+   and inputs); kernel A launched in A0-A2, kernel B in A3, and the port's
+   tiers t3-t5 and sweep spans K >= 1024 reached where the reference's
+   were. This file reads the goldens as data and imports nothing of the
+   JAX package.
 The last lines are the card line, the kernel table as JSON, and the
 result as JSON.
 
@@ -1078,7 +1089,8 @@ def e2e_phase(tmp, pair, segmented=True):
     """The port's CLI in-process on the pair of write_pair: the default
     path, or ExactWfaEngine alone (WFMASH_TPU_SEGMENTED=0), mapping
     through the device stages (the default on a card). Returns the
-    launches of (seg_wfa, sweep_wfa), both counted from 0."""
+    launches of (seg_wfa, sweep_wfa), both counted from 0, the perf
+    counters and the wall of that run."""
     from wfmash_tpu_torch import cli
     from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
     from wfmash_tpu_torch.utils import perf
@@ -1161,8 +1173,273 @@ def e2e_phase(tmp, pair, segmented=True):
         if segmented:
             _busy_share("e2e -m, mapping only",
                         lambda: cli.main([pt, pq, "-t", "1", "-m"]))
-    return launches
+    return launches, snap, wall
 
+
+# ---------------------------------------------------------------------------
+# golden: the reference's own output bytes (tests/torch_golden/)
+# ---------------------------------------------------------------------------
+
+GOLDEN_DIR = os.path.join(ROOT, "tests", "torch_golden")
+
+
+# copies of the generators of scripts/torch_golden.py (the JAX package's
+# CLI wrote the goldens from these inputs; this file reads them as data)
+
+def golden_write_fasta(path, seqs, width=60):
+    """Plain FASTA, `width` bases a line, and its .fai."""
+    fai = []
+    with open(path, "wb") as fh:
+        for name, seq in seqs.items():
+            fh.write(b">" + name.encode() + b"\n")
+            off = fh.tell()
+            for i in range(0, len(seq), width):
+                fh.write(seq[i:i + width] + b"\n")
+            fai.append(f"{name}\t{len(seq)}\t{off}\t{width}\t{width + 1}\n")
+    with open(str(path) + ".fai", "w") as fh:
+        fh.write("".join(fai))
+
+
+def _golden_snps(rng, codes, rate):
+    out = codes.copy()
+    pos = rng.random(len(out)) < rate
+    out[pos] = (out[pos] + rng.integers(1, 4, int(pos.sum()))) % 4
+    return out
+
+
+def _golden_small_indels(rng, codes, rate, longest):
+    sites = np.sort(rng.choice(len(codes) - longest, int(len(codes) * rate),
+                               replace=False))
+    lens = rng.integers(1, longest + 1, len(sites))
+    ins = rng.random(len(sites)) < 0.5
+    parts, at = [], 0
+    for s, n, i in zip(sites.tolist(), lens.tolist(), ins.tolist()):
+        if s < at:
+            continue
+        parts.append(codes[at:s])
+        if i:
+            parts.append(rng.integers(0, 4, n).astype(np.uint8))
+            at = s
+        else:
+            at = s + n
+    parts.append(codes[at:])
+    return np.concatenate(parts)
+
+
+def _golden_scale_pair(d, bp, seed):
+    from scale_demo import make_pair, write_fasta_bgzf
+
+    anc, der = make_pair(bp, seed=seed)
+    write_fasta_bgzf(os.path.join(d, "anc.fa.gz"), "anc", anc)
+    write_fasta_bgzf(os.path.join(d, "der.fa.gz"), "der", der)
+    return ["anc.fa.gz", "anc.fa.gz.fai", "der.fa.gz", "der.fa.gz.fai"]
+
+
+def _golden_pangenome(d, bp, seed):
+    rng = np.random.default_rng(seed)
+    anc = rng.integers(0, 4, bp).astype(np.uint8)
+    seqs = {}
+    for hap in range(8):
+        s = _golden_small_indels(
+            rng, _golden_snps(rng, anc, 0.01 + 0.005 * hap), 0.0005, 8)
+        if hap % 3 == 2:
+            s = np.concatenate([s[len(s) // 2:], s[:len(s) // 2]])
+        seqs[f"g{hap}#1#chr1"] = ACGT[s].tobytes()
+    golden_write_fasta(os.path.join(d, "pan.fa"), seqs)
+    return ["pan.fa", "pan.fa.fai"]
+
+
+def _golden_indel_pair(d, bp, seed, snp, events):
+    rng = np.random.default_rng(seed)
+    tgt = rng.integers(0, 4, bp).astype(np.uint8)
+    q = _golden_small_indels(rng, _golden_snps(rng, tgt, snp), 0.0005, 8)
+    if events:
+        for f, kind, n in ((0.85, "del", 800), (0.72, "ins", 400),
+                           (0.55, "del", 2500), (0.45, "div", 700),
+                           (0.3, "ins", 1500), (0.12, "div", 3000)):
+            a = int(len(q) * f)
+            if kind == "del":
+                q = np.concatenate([q[:a], q[a + n:]])
+            elif kind == "ins":
+                q = np.concatenate(
+                    [q[:a], rng.integers(0, 4, n).astype(np.uint8), q[a:]])
+            else:
+                q = q.copy()
+                q[a:a + n] = _golden_snps(rng, q[a:a + n],
+                                          0.3 if n < 1000 else 0.04)
+    golden_write_fasta(os.path.join(d, "t.fa"), {"t": ACGT[tgt].tobytes()})
+    golden_write_fasta(os.path.join(d, "q.fa"), {"q": ACGT[q].tobytes()})
+    return ["t.fa", "t.fa.fai", "q.fa", "q.fa.fai"]
+
+
+GOLDEN_GENERATORS = {"scale_pair": _golden_scale_pair,
+                     "pangenome": _golden_pangenome,
+                     "indel_pair": _golden_indel_pair}
+
+
+def _sha256s(d, names):
+    """{file name: sha256} of the named files in directory d."""
+    import hashlib
+
+    out = {}
+    for n in names:
+        with open(os.path.join(d, n), "rb") as fh:
+            out[n] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def golden_inputs(entry, d):
+    """Write a manifest entry's inputs into directory d with this file's
+    copy of its generator; {file name: sha256}."""
+    return _sha256s(d, GOLDEN_GENERATORS[entry["generator"]](
+        d, **entry["args"]))
+
+
+def golden_manifest():
+    with open(os.path.join(GOLDEN_DIR, "manifest.json")) as fh:
+        return json.load(fh)
+
+
+def golden_bytes(entry):
+    """The reference's output bytes of a manifest entry, uncompressed."""
+    import gzip
+
+    path = os.path.join(GOLDEN_DIR, entry["output"])
+    with open(path, "rb") as fh:
+        data = fh.read()
+    return gzip.decompress(data) if path.endswith(".gz") else data
+
+
+def golden_reach(snap):
+    """The port's reach from its perf counters, in the manifest's terms:
+    which of t3-t5 took jobs, and whether a sweep ran at K >= 1024."""
+    out = {t: snap.get(f"align.tier_jobs.{t}", 0) > 0
+           for t in ("t3", "t4", "t5")}
+    out["K>=1024"] = any(
+        k.startswith("align.sweep_problems.K") and int(k[22:]) >= 1024
+        and v > 0 for k, v in snap.items())
+    return out
+
+
+def golden_counts(snap):
+    """(tier jobs, sweep problems by span) from the port's perf counters,
+    keyed as the manifest keys the reference's."""
+    tiers = {k[16:]: int(v) for k, v in snap.items()
+             if k.startswith("align.tier_jobs.") and v}
+    spans = {k[22:]: int(v) for k, v in snap.items()
+             if k.startswith("align.sweep_problems.K") and v}
+    return tiers, spans
+
+
+def first_difference(got, want):
+    """(line number, the port's line, the reference's line) of the first
+    line where two outputs differ."""
+    g, w = got.splitlines(), want.splitlines()
+    for i in range(max(len(g), len(w))):
+        a = g[i] if i < len(g) else b"<none>"
+        b = w[i] if i < len(w) else b"<none>"
+        if a != b:
+            return i + 1, a, b
+    return None
+
+
+def golden_phase(tmp, e2e=None):
+    """The port's CLI, in-process on the card with mapping through the
+    device stages (the default there), on every case of
+    tests/torch_golden/manifest.json, held to the bytes the reference
+    (`python -m wfmash_tpu`, on the CPU, Pallas interpret mode) wrote.
+    Each case's inputs are first made anew with this file's copy of its
+    generator and must hash as the manifest records ("input drift"
+    otherwise: a fault of the inputs, not of the port). M1 runs once more
+    with WFMASH_TPU_DEVICE_L1=0. A0 is the e2e phase's own run (the same
+    argv and inputs) when that phase ran: `e2e` is then (its PAF, its
+    launches, its perf counters, its wall), and write_pair's files, whose
+    hashes are checked, are in tmp. The full-alignment cases must
+    launch kernel A (A0-A2) or kernel B (A3), and the port must reach the
+    tiers t3-t5 and the sweep spans K >= 1024 that the reference reached."""
+    from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
+    from wfmash_tpu_torch.utils import perf
+
+    man = golden_manifest()
+    made: dict = {}     # (generator, args) -> (directory, input hashes)
+    t_phase = time.monotonic()
+    for case, e in man["cases"].items():
+        key = json.dumps([e["generator"], e["args"]], sort_keys=True)
+        if key not in made:
+            if e2e is not None and e["generator"] == "scale_pair" and \
+                    e["args"] == {"bp": E2E_BP, "seed": 42}:
+                made[key] = (tmp, _sha256s(tmp, e["inputs"]))
+            else:
+                d = os.path.join(tmp, f"golden{len(made)}")
+                os.makedirs(d)
+                made[key] = (d, golden_inputs(e, d))
+        d, hashes = made[key]
+        if hashes != e["inputs"]:
+            bad = sorted(n for n in set(hashes) | set(e["inputs"])
+                         if hashes.get(n) != e["inputs"].get(n))
+            raise RuntimeError(
+                f"golden {case}: input drift: {bad} hash otherwise than "
+                "the manifest records (the generator's output changed on "
+                "this machine; not a fault of the port)")
+        want = golden_bytes(e)
+        argv = [os.path.join(d, a) if a in e["inputs"] else a
+                for a in e["argv"]]
+        # the engine switch; the reference's other variables (its JAX
+        # platform and Pallas backend, its counters) mean nothing here
+        env = {"WFMASH_TPU_SEGMENTED": e["env"]["WFMASH_TPU_SEGMENTED"]}
+        runs = [("", {})]
+        if case == "M1":
+            runs.append((" WFMASH_TPU_DEVICE_L1=0",
+                         {"WFMASH_TPU_DEVICE_L1": "0"}))
+        for label, extra in runs:
+            out = os.path.join(tmp, f"golden_{case}.out")
+            if case == "A0" and e2e is not None:
+                got = open(e2e[0], "rb").read()
+                launches, snap, wall = e2e[1:]
+                label = " (the e2e phase's run)"
+            else:
+                perf.reset()
+                wfa_seg.LAUNCHES = wfa_sweep.LAUNCHES = 0
+                rc, wall, _ = _run_cli(argv, out, True, **env, **extra)
+                launches = (wfa_seg.LAUNCHES, wfa_sweep.LAUNCHES)
+                snap = perf.snapshot()
+                if rc != 0:
+                    raise RuntimeError(f"golden {case}{label}: exit {rc}")
+                got = open(out, "rb").read()
+            rows = sum(1 for ln in got.splitlines()
+                       if not ln.startswith(b"@"))
+            log(f"[golden {case}]{label} {rows} rows, seg_wfa launches "
+                f"{launches[0]}, sweep_wfa launches {launches[1]}, wall "
+                f"{wall:.2f} s, device L1 calls "
+                f"{int(snap.get('map.device_calls', 0))}: "
+                + ("byte-equal to the reference" if got == want
+                   else "DIFFERS from the reference"))
+            if got != want:
+                line, a, b = first_difference(got, want)
+                log(f"[golden {case}] first difference, line {line}:\n"
+                    f"  port:      {a[:400]!r}\n  reference: {b[:400]!r}")
+                raise RuntimeError(f"golden {case}{label}: the port's "
+                                   "output differs from the reference's")
+            if e["tier_jobs"] or e["sweep_problems"]:
+                tiers, spans = golden_counts(snap)
+                reach = golden_reach(snap)
+                log(f"[golden {case}] tier jobs {tiers} (reference "
+                    f"{e['tier_jobs']}), sweep problems by span {spans} "
+                    f"(reference {e['sweep_problems']}), reach {reach}")
+                if reach != e["reach"]:
+                    raise RuntimeError(f"golden {case}: the port reaches "
+                                       f"{reach}, the reference {e['reach']}")
+            if case.startswith("A") and case != "A3" and not launches[0]:
+                raise RuntimeError(f"golden {case}: kernel A never launched")
+            if case == "A3" and not launches[1]:
+                raise RuntimeError("golden A3: kernel B never launched")
+    log(f"[golden] {len(man['cases'])} cases byte-equal to the reference "
+        f"in {time.monotonic() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# mesh: the multi-device paths over logical shards
+# ---------------------------------------------------------------------------
 
 MESH_SHARDS = 8        # logical shards of cuda:0 in the mesh phase
 MESH_DIAG_K = 2048     # band of the diagonal-sharded problem
@@ -1511,7 +1788,8 @@ def kernel_row(name, replaces, launches, rows):
 
 
 E2E_BP = 6_000_000     # the end-to-end pair's size
-PHASES = ("tiers", "spec", "sweep", "exact", "map", "e2e", "e2e0", "mesh")
+PHASES = ("tiers", "spec", "sweep", "exact", "map", "e2e", "e2e0", "mesh",
+          "golden")
 
 
 def main(argv=None) -> int:
@@ -1550,11 +1828,17 @@ def main(argv=None) -> int:
         if "map" in phases:
             map_phase(pair, dev)
         if "e2e" in phases:
-            seg_launches, _ = e2e_phase(tmp, pair)
+            launches, e2e_snap, e2e_wall = e2e_phase(tmp, pair)
+            seg_launches = launches[0]
+            e2e = (os.path.join(tmp, "out1.paf"), launches, e2e_snap,
+                   e2e_wall)
         if "e2e0" in phases:
-            _, sweep_launches = e2e_phase(tmp, pair, segmented=False)
+            (_, sweep_launches), _, _ = e2e_phase(tmp, pair,
+                                                  segmented=False)
         if "mesh" in phases:
             mesh_launches = mesh_phase(p, tmp, pair, rng)
+        if "golden" in phases:
+            golden_phase(tmp, e2e if "e2e" in phases else None)
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}): no result line")
         return 0

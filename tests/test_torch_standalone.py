@@ -12,7 +12,10 @@ originals compute.
   logical CPU shards (WFMASH_TPU_DEVICE_L1=mesh, WFMASH_TPU_ALIGN_MESH=
   force), then look at sys.modules.
 * A source scan: no file of the package, nor chip_smoke.py, has an import
-  of jax or of wfmash_tpu (wfmash_tpu_torch is allowed).
+  of jax or of wfmash_tpu (wfmash_tpu_torch is allowed). chip_smoke.py's
+  `golden` phase reads tests/torch_golden/ as data: a subprocess loads
+  its manifest, a golden file and a case's inputs through chip_smoke.py
+  and finds no jax and no wfmash_tpu in sys.modules.
 * The copied host modules against the originals on seeded inputs where a
   whole-path test would not reach them. Tolerance: exact.
 """
@@ -131,6 +134,47 @@ def test_sources_import_neither_jax_nor_the_reference():
     for name in ("ops", "align/wfa_jax.py", "align/wfa_pallas.py",
                  "align/wfa_pallas_seg.py", "utils/jaxcache.py"):
         assert not (PKG / name).exists(), name
+
+
+_GOLDEN_CHILD = r"""
+import json, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+man = chip_smoke.golden_manifest()
+e = man["cases"]["A2"]
+with tempfile.TemporaryDirectory() as d:
+    same = chip_smoke.golden_inputs(e, d) == e["inputs"]
+print(json.dumps(dict(
+    cases=sorted(man["cases"]), same=same,
+    rows=chip_smoke.golden_bytes(e).count(b"\n"),
+    dir=chip_smoke.GOLDEN_DIR, phases=list(chip_smoke.PHASES),
+    leaked=sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "wfmash_tpu")))))
+"""
+
+
+def _golden_section(src):
+    """chip_smoke.py's `golden` phase: from its section header to the
+    next one."""
+    a = src.index("# golden: ")
+    return src[a:src.index("\n# ----", src.index("def golden_phase", a))]
+
+
+def test_golden_phase_reads_goldens_without_the_reference():
+    src = (REPO / "chip_smoke.py").read_text()
+    sec = _golden_section(src)
+    assert "def golden_phase" in sec and '"torch_golden"' in sec
+    assert not _IMPORT.search(sec) and not _DYNAMIC.search(sec)
+    assert "jax" not in sec.replace("JAX package", "")
+    r = subprocess.run([sys.executable, "-c", _GOLDEN_CHILD, str(REPO)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    assert got["same"] and got["rows"] == 3
+    assert got["dir"] == str(REPO / "tests" / "torch_golden")
+    assert "golden" in got["phases"]
+    assert {"M1", "A0", "A1", "A2", "A3", "S1"} <= set(got["cases"])
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,11 @@ of wfmash_tpu/align/engine.py:
   make_engine chooses;
 * emit PAF rows (or SAM), preserving input record order.
 
-Unlike the reference, an engine error ends the run: the reference catches
-any exception of a batch, logs it and retries record by record, so a
-kernel fault would drop rows and still exit 0.
+A record whose extraction (`build_job`, a host-side read of the FASTA)
+raises is logged and skipped, as in the reference. Unlike the reference,
+an engine error ends the run: the reference catches any exception of a
+batch, logs it and retries record by record, so a kernel fault would drop
+rows and still exit 0.
 """
 
 from __future__ import annotations
@@ -549,7 +551,9 @@ def run_alignment(params: AlignParams, out, device) -> None:
                 try:
                     job = build_job(row, ref_reader, query_reader, params,
                                     ref_cache, query_cache)
-                except (ValueError, KeyError, IndexError, OSError) as e:
+                except Exception as e:
+                    # the reference's rule for a host-side read of the
+                    # FASTA: log, count and skip the record
                     log(f"[wfmash::align] Error extracting record: {e}")
                     meter.increment(1)
                     continue

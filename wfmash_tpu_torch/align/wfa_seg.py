@@ -688,6 +688,8 @@ class SegmentSolver:
     def _dispatch_chunk(self, idxs, jobs, max_scores):
         """Pack one chunk and launch it (asynchronously on a card).
         Returns the collect state: device outputs + certificate metadata."""
+        perf.add(f"align.tier_jobs.{tier_name(self.K, self.smax)}",
+                 len(idxs))
         buf, meta = self.pack_chunk(idxs, jobs, max_scores)
         if buf is None:
             return meta
@@ -777,6 +779,14 @@ TIERS = (
     (16, 1024, 512, 4224, 16),    # t4: deep patches up to 4096 a side
     (16, 256, 2048, 2048, 32),    # t5: deep divergence, narrow band
 )
+
+
+def tier_name(K: int, smax: int) -> str:
+    """t1..t5 for a tier envelope of TIERS, else K<K>s<smax>."""
+    for i, (_, k, sm, _, _) in enumerate(TIERS):
+        if (k, sm) == (K, smax):
+            return f"t{i + 1}"
+    return f"K{K}s{smax}"
 
 
 class TieredSegmentSolver:

@@ -654,6 +654,8 @@ class ExactSweeps:
         if np.any((seed_off > NEG_I) & ((seed_off < 0) | (seed_off > 65534))):
             raise ValueError("seed offsets must be NEG_I or in [0, 65534]")
         done0 = np.asarray(done0, bool)
+        # problems swept at this span (the span ladder's reach)
+        perf.add(f"align.sweep_problems.K{K}", int((~done0).sum()))
         if done0.all():
             return (np.zeros(B, np.int32), np.full(B, -1, np.int32),
                     np.full(B, -1, np.int32), done0.copy(),
