@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (g++), all started together;
 3. per segment tier, one full chunk of generated jobs packed by the port's
    pack_chunk: the segment kernel and its plain PyTorch version (on the
-   card, and on a CPU copy of every fourth row) must agree byte for byte
+   card, and on a CPU copy of every sixteenth row) must agree byte for byte
    (term col 8, the per-problem level counter, aside);
 4. the tiered solver on the card: every `ok` CIGAR must equal wfa_np's;
 5. per span-ladder step K = 256..4096, one seeded batch (both split axes,
@@ -40,8 +40,7 @@ Phases (any failure exits non-zero; nothing is caught):
    CIGARs replay exactly, query coverage >= 0.95, the PAF byte-equal to
    that of one more run with WFMASH_TPU_DEVICE_L1=0 (host mapping) and,
    on the default path, to that of a run with `-t 4` (forked workers
-   beside the CUDA context); a run that passed its gates is made once
-   more under torch.profiler for the card's busy share (reported only);
+   beside the CUDA context);
 9. the multi-device paths (wfmash_tpu_torch/parallel/) over eight logical
    shards of cuda:0, and over the machine's cards too where it has more
    than one: one chunk of every tier split over the shards (kernel A
@@ -52,8 +51,8 @@ Phases (any failure exits non-zero; nothing is caught):
    2048) and data_parallel_wfa_steps bit-equal to advance_torch
    unsharded, the CLI with WFMASH_TPU_DEVICE_L1=mesh and
    WFMASH_TPU_ALIGN_MESH=force (PAF byte-equal to the default run's, more
-   than 15 kernel-A launches, replay and coverage; then once more under
-   the profiler), entry() and dryrun_multichip(8);
+   than 15 kernel-A launches, replay and coverage), entry() and
+   dryrun_multichip(8);
 10. golden: every case of tests/torch_golden/manifest.json, output bytes
    that the JAX package's CLI wrote on the CPU (scripts/torch_golden.py):
    each case's inputs made anew with this file's copy of the generators
@@ -64,7 +63,21 @@ Phases (any failure exits non-zero; nothing is caught):
    and inputs); kernel A launched in A0-A2, kernel B in A3, and the port's
    tiers t3-t5 and sweep spans K >= 1024 reached where the reference's
    were. This file reads the goldens as data and imports nothing of the
-   JAX package.
+   JAX package. The cases of the scale phase are left to it;
+11. scale: the port's CLI on the card at the size its users run, the
+   manifest's cases B1 and B0 (the 100 Mb pair of scripts/scale_demo.py,
+   mapped; aligned), Y1 and Y2 (a yeast-sized 8-genome PanSN pangenome:
+   upstream's yeast mapping test; its S288C/Y12 pair aligned). B1, Y1
+   and Y2 run in this process and must write the golden bytes, Y1 cover
+   each sequence >= 0.89, Y2 replay every CIGAR and align > 11 Mb; B0
+   runs in a process of its own and meets scale_demo.py's gates (peak RSS
+   <= 8 GB, 200 sampled CIGARs replay, coverage >= 0.95, kernel A
+   launched) and the sha256 of the reference's output, then aligns once
+   more from B1's PAF (`-i`) under torch.profiler for the card's busy
+   share while it aligns (reported only).
+   Each case prints a `[scale <case>]` line (walls, rows, launches and
+   CUDA-event ms of both kernels, device L1/L2 calls and the rows left to
+   the host, the index's bytes, peak device memory, B0's peak RSS).
 The last lines are the card line, the kernel table as JSON, and the
 result as JSON.
 
@@ -86,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -109,9 +123,10 @@ MIN_COVERAGE = 0.95
 MIN_SPEC_CHECKS = 200
 MIN_DEVICE_SHARE = 0.90    # of fragments (L1) and candidates (L2)
 # the segment kernel's plain version runs on the card on every row of a
-# tier's chunk, and through run_seg's CPU path on every fourth row (a
-# row is one problem; the whole chunk took 27-94 s a tier on the CPU)
-CPU_COPY_STRIDE = 4
+# tier's chunk, and through run_seg's CPU path on every sixteenth row (a
+# row is one problem; the whole chunk took 27-94 s a tier on the CPU,
+# every fourth row 89 s over the five tiers)
+CPU_COPY_STRIDE = 16
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 INT_OPS_PER_S = 67e12          # non-tensor fp32 FLOP rate, published
@@ -339,7 +354,8 @@ def _diff(a, b):
 def tier_phase(p, dev, rng):
     """Kernel vs plain version on one full chunk per tier: the plain
     version runs on the card (its time is the one reported) and, through
-    run_seg's CPU path, on a CPU copy of every fourth row of that buffer."""
+    run_seg's CPU path, on a CPU copy of every sixteenth row of that
+    buffer."""
     import torch
 
     from wfmash_tpu_torch.align import wfa_seg
@@ -434,6 +450,11 @@ def spec_phase(p, dev, rng):
 # span-ladder steps of the exact engine: (K, shortest, longest block)
 SWEEP_STEPS = ((256, 1000, 2000), (512, 2000, 4000), (1024, 4000, 8000),
                (2048, 8000, 16000), (4096, 16000, 48000))
+# a ladder step's problems are cut to this many bases a side after they
+# are drawn (the K=4096 step's: 16-48 kb drawn, the rest of the batches
+# unchanged): the plain version's time grows with the deepest problem's
+# levels, and the step's check took 123-143 s of the run at 48 kb
+SWEEP_LONGEST = 32000
 SWEEP_BATCH = 128
 SWEEP_MAX_S = 30000
 SWEEP_CUT_S = 1400     # max_s of the batch that is cut short
@@ -570,6 +591,7 @@ def sweep_batches(rng, p):
     for K, lo, hi in SWEEP_STEPS:
         pairs = [_pair(rng, lo, hi, float(rng.uniform(0.02, 0.05)), 0.002)
                  for _ in range(SWEEP_BATCH)]
+        pairs = [(q[:SWEEP_LONGEST], t[:SWEEP_LONGEST]) for q, t in pairs]
         for i in (5, 77):                       # solved before the sweep
             pairs[i] = (pairs[i][0], pairs[i][0])
         batches.append((f"K={K}", K, pairs, range(0, SWEEP_BATCH, 3), p,
@@ -1027,10 +1049,17 @@ def _env(**env):
                 os.environ[k] = v
 
 
-def _run_cli(argv, out_paf, segmented, **env):
+def _done_in(text, what):
+    """The seconds of the CLI's "<what> done in" message in text (nan when
+    it has none)."""
+    m = re.search(what + r" done in ([0-9.]+)s", text)
+    return float(m.group(1)) if m else float("nan")
+
+
+def _cli_call(argv, out_paf, segmented, **env):
     """One in-process run of the port's CLI with its output in out_paf and
     `env` set for its duration; the run's messages go on to the standard
-    error. Returns (exit code, wall s, the "mapping done in" seconds)."""
+    error. Returns (exit code, wall s, the messages)."""
     import torch
 
     from wfmash_tpu_torch import cli
@@ -1046,39 +1075,30 @@ def _run_cli(argv, out_paf, segmented, **env):
         wall = time.monotonic() - t0
     finally:
         sys.stderr.write(err.getvalue())
-    m = re.search(r"mapping done in ([0-9.]+)s", err.getvalue())
-    return rc, wall, float(m.group(1)) if m else float("nan")
+    return rc, wall, err.getvalue()
 
 
-def _check_paf(tag, out_paf, pair):
-    """The aligned rows of out_paf: N_SAMPLE sampled CIGARs must replay
-    exactly and the rows must cover MIN_COVERAGE of the query."""
-    from wfmash_tpu_torch.align import cigar as C
-    from wfmash_tpu_torch.sketch.kmers import reverse_complement
+def _run_cli(argv, out_paf, segmented, **env):
+    """_cli_call's (exit code, wall s, the "mapping done in" seconds)."""
+    rc, wall, text = _cli_call(argv, out_paf, segmented, **env)
+    return rc, wall, _done_in(text, "mapping")
 
-    anc_b, der_b = pair[2:]
+
+def _check_paf(tag, out_paf, seqs, sample=N_SAMPLE):
+    """The aligned rows of out_paf (one query): `sample` sampled rows must
+    replay (replay_row, over the _Seqs seqs) and the rows must cover
+    MIN_COVERAGE of the query."""
     rows = [ln for ln in open(out_paf) if "\tcg:Z:" in ln]
     if not rows:
         raise RuntimeError("no aligned rows")
-    der_rc = bytes(reverse_complement(np.frombuffer(der_b, np.uint8)))
     pick = np.random.default_rng(0).choice(
-        len(rows), min(N_SAMPLE, len(rows)), replace=False)
+        len(rows), min(sample, len(rows)), replace=False)
     for i in pick:
-        f = rows[int(i)].rstrip("\n").split("\t")
-        ops = C.parse(next(c[5:] for c in f[12:] if c.startswith("cg:Z:")))
-        qs, qe, ts = int(f[2]), int(f[3]), int(f[7])
-        q, q_start = (der_rc, len(der_b) - qe) if f[4] == "-" else (der_b, qs)
-        if not C.validate(ops, q, anc_b, q_start, ts):
+        if not replay_row(rows[int(i)], seqs)[0]:
             raise RuntimeError(f"CIGAR replay failed on row {i}")
-    iv = sorted((int(ln.split("\t")[2]), int(ln.split("\t")[3]))
-                for ln in rows)
-    cov = end = 0
-    for a, b in iv:
-        a = max(a, end)
-        if b > a:
-            cov += b - a
-            end = b
-    cov_frac = cov / len(der_b)
+    cov_frac = _covered(
+        (int(ln.split("\t")[2]), int(ln.split("\t")[3])) for ln in rows
+    ) / int(rows[0].split("\t")[1])
     log(f"[{tag}] {len(rows)} rows, {len(pick)} sampled CIGARs replay "
         f"exactly, query coverage {cov_frac:.4f}")
     if cov_frac < MIN_COVERAGE:
@@ -1091,7 +1111,6 @@ def e2e_phase(tmp, pair, segmented=True):
     through the device stages (the default on a card). Returns the
     launches of (seg_wfa, sweep_wfa), both counted from 0, the perf
     counters and the wall of that run."""
-    from wfmash_tpu_torch import cli
     from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
     from wfmash_tpu_torch.utils import perf
 
@@ -1123,7 +1142,7 @@ def e2e_phase(tmp, pair, segmented=True):
                            f"fragments and {left[1]:.4f} of the candidates "
                            "to the host")
 
-    _check_paf(tag, out_paf, pair)
+    _check_paf(tag, out_paf, _Seqs(known=dict(anc=pair[2], der=pair[3])))
 
     # the same command with the host mapping, and (default path) with four
     # workers forked beside the CUDA context: the same bytes
@@ -1168,11 +1187,6 @@ def e2e_phase(tmp, pair, segmented=True):
                                    f"exits {rc} or skipped the device")
         if pafs[0] != pafs[1] or not pafs[0]:
             raise RuntimeError(f"{tag}: forked workers change the mapping")
-    with _engine_switch(segmented):
-        _busy_share(tag, lambda: cli.main([pt, pq, "-t", "1"]))
-        if segmented:
-            _busy_share("e2e -m, mapping only",
-                        lambda: cli.main([pt, pq, "-t", "1", "-m"]))
     return launches, snap, wall
 
 
@@ -1230,8 +1244,11 @@ def _golden_scale_pair(d, bp, seed):
     from scale_demo import make_pair, write_fasta_bgzf
 
     anc, der = make_pair(bp, seed=seed)
-    write_fasta_bgzf(os.path.join(d, "anc.fa.gz"), "anc", anc)
-    write_fasta_bgzf(os.path.join(d, "der.fa.gz"), "der", der)
+    # the two files compressed at once (zlib lets go of the GIL)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda nc: write_fasta_bgzf(
+            os.path.join(d, nc[0] + ".fa.gz"), *nc),
+            (("anc", anc), ("der", der))))
     return ["anc.fa.gz", "anc.fa.gz.fai", "der.fa.gz", "der.fa.gz.fai"]
 
 
@@ -1272,9 +1289,57 @@ def _golden_indel_pair(d, bp, seed, snp, events):
     return ["t.fa", "t.fa.fai", "q.fa", "q.fa.fai"]
 
 
+GOLDEN_YEAST_KB = (230, 813, 317, 1532, 577, 270, 1091, 563, 440, 746, 667,
+                   1078, 924, 784, 1091, 948)
+
+
+def _golden_yeast_pangenome(d, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    anc = [rng.integers(0, 4, round(kb * 1000 * scale)).astype(np.uint8)
+           for kb in GOLDEN_YEAST_KB]
+    for unit, copies in ((6000, 30), (330, 300)):
+        elem = rng.integers(0, 4, unit).astype(np.uint8)
+        for c in rng.integers(0, len(anc), max(2, round(copies * scale))):
+            copy = _golden_snps(rng, elem, rng.uniform(0.01, 0.03))
+            if rng.random() < 0.5:
+                copy = 3 - copy[::-1]
+            at = int(rng.integers(0, len(anc[c]) - unit))
+            anc[c][at:at + unit] = copy
+    seqs = {}
+    for h in range(8):
+        chroms = [_golden_small_indels(
+            rng, _golden_snps(rng, a, 0.003 + 0.001 * h), 0.0005, 8)
+            for a in anc]
+        if h in (2, 5):
+            a, b = (int(x) for x in rng.choice(len(chroms), 2,
+                                               replace=False))
+            ia = int(rng.integers(len(chroms[a]) // 4,
+                                  3 * len(chroms[a]) // 4))
+            ib = int(rng.integers(len(chroms[b]) // 4,
+                                  3 * len(chroms[b]) // 4))
+            chroms[a], chroms[b] = (
+                np.concatenate([chroms[a][:ia], chroms[b][ib:]]),
+                np.concatenate([chroms[b][:ib], chroms[a][ia:]]))
+        if h in (3, 4, 6):
+            n = round((40_000 if h != 4 else 20_000) * scale)
+            c = int(rng.integers(0, len(chroms)))
+            at = int(rng.integers(0, len(chroms[c]) - n))
+            s = chroms[c]
+            if h == 4:
+                chroms[c] = np.concatenate([s[:at], s[at + n:]])
+            else:
+                chroms[c] = np.concatenate(
+                    [s[:at], 3 - s[at:at + n][::-1], s[at + n:]])
+        for c, s in enumerate(chroms):
+            seqs[f"g{h}#1#chr{c + 1}"] = ACGT[s].tobytes()
+    golden_write_fasta(os.path.join(d, "pan.fa"), seqs)
+    return ["pan.fa", "pan.fa.fai"]
+
+
 GOLDEN_GENERATORS = {"scale_pair": _golden_scale_pair,
                      "pangenome": _golden_pangenome,
-                     "indel_pair": _golden_indel_pair}
+                     "indel_pair": _golden_indel_pair,
+                     "yeast_pangenome": _golden_yeast_pangenome}
 
 
 def _sha256s(d, names):
@@ -1310,6 +1375,21 @@ def golden_bytes(entry):
     return gzip.decompress(data) if path.endswith(".gz") else data
 
 
+# the manifest's cases kept as row digests (scripts/torch_golden.DIGESTS)
+GOLDEN_DIGESTS = ("B0",)
+
+
+def golden_row_digests(out):
+    """scripts/torch_golden.row_digests: a line a row, its first 12
+    columns and the sha256 of its tags (what a digests case keeps)."""
+    lines = []
+    for ln in out.splitlines():
+        cols = ln.split(b"\t")
+        tags = hashlib.sha256(b"\t".join(cols[12:])).hexdigest().encode()
+        lines.append(b"\t".join(cols[:12] + [tags]) + b"\n")
+    return b"".join(lines)
+
+
 def golden_reach(snap):
     """The port's reach from its perf counters, in the manifest's terms:
     which of t3-t5 took jobs, and whether a sweep ran at K >= 1024."""
@@ -1343,6 +1423,29 @@ def first_difference(got, want):
     return None
 
 
+def golden_case_argv(tmp, case, e, made, prefix="golden"):
+    """A manifest case's argv with its inputs made in a directory under
+    tmp (`prefix` and a number) by this file's copy of its generator (once
+    for each generator and arguments: `made` maps them to (directory,
+    input hashes)); the inputs
+    must hash as the manifest records ("input drift" otherwise: the
+    generator's output changed, not a fault of the port)."""
+    key = json.dumps([e["generator"], e["args"]], sort_keys=True)
+    if key not in made:
+        d = os.path.join(tmp, f"{prefix}{len(made)}")
+        os.makedirs(d)
+        made[key] = (d, golden_inputs(e, d))
+    d, hashes = made[key]
+    if hashes != e["inputs"]:
+        bad = sorted(n for n in set(hashes) | set(e["inputs"])
+                     if hashes.get(n) != e["inputs"].get(n))
+        raise RuntimeError(
+            f"golden {case}: input drift: {bad} hash otherwise than "
+            "the manifest records (the generator's output changed on "
+            "this machine; not a fault of the port)")
+    return [os.path.join(d, a) if a in e["inputs"] else a for a in e["argv"]]
+
+
 def golden_phase(tmp, e2e=None):
     """The port's CLI, in-process on the card with mapping through the
     device stages (the default there), on every case of
@@ -1363,27 +1466,15 @@ def golden_phase(tmp, e2e=None):
     man = golden_manifest()
     made: dict = {}     # (generator, args) -> (directory, input hashes)
     t_phase = time.monotonic()
-    for case, e in man["cases"].items():
-        key = json.dumps([e["generator"], e["args"]], sort_keys=True)
-        if key not in made:
-            if e2e is not None and e["generator"] == "scale_pair" and \
-                    e["args"] == {"bp": E2E_BP, "seed": 42}:
-                made[key] = (tmp, _sha256s(tmp, e["inputs"]))
-            else:
-                d = os.path.join(tmp, f"golden{len(made)}")
-                os.makedirs(d)
-                made[key] = (d, golden_inputs(e, d))
-        d, hashes = made[key]
-        if hashes != e["inputs"]:
-            bad = sorted(n for n in set(hashes) | set(e["inputs"])
-                         if hashes.get(n) != e["inputs"].get(n))
-            raise RuntimeError(
-                f"golden {case}: input drift: {bad} hash otherwise than "
-                "the manifest records (the generator's output changed on "
-                "this machine; not a fault of the port)")
+    cases = {c: e for c, e in man["cases"].items() if c not in SCALE_CASES}
+    for case, e in cases.items():
+        if e2e is not None and e["generator"] == "scale_pair" and \
+                e["args"] == {"bp": E2E_BP, "seed": 42}:
+            made.setdefault(json.dumps([e["generator"], e["args"]],
+                                       sort_keys=True),
+                            (tmp, _sha256s(tmp, e["inputs"])))
+        argv = golden_case_argv(tmp, case, e, made)
         want = golden_bytes(e)
-        argv = [os.path.join(d, a) if a in e["inputs"] else a
-                for a in e["argv"]]
         # the engine switch; the reference's other variables (its JAX
         # platform and Pallas backend, its counters) mean nothing here
         env = {"WFMASH_TPU_SEGMENTED": e["env"]["WFMASH_TPU_SEGMENTED"]}
@@ -1433,8 +1524,376 @@ def golden_phase(tmp, e2e=None):
                 raise RuntimeError(f"golden {case}: kernel A never launched")
             if case == "A3" and not launches[1]:
                 raise RuntimeError("golden A3: kernel B never launched")
-    log(f"[golden] {len(man['cases'])} cases byte-equal to the reference "
+    log(f"[golden] {len(cases)} cases byte-equal to the reference "
         f"in {time.monotonic() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# scale: the port at the size its users run (tests/torch_golden/ B0-Y2)
+# ---------------------------------------------------------------------------
+
+SCALE_CASES = ("B1", "Y1", "Y2", "B0")
+SCALE_RSS_GB = 8.0          # scripts/scale_demo.py's peak-RSS ceiling
+SCALE_SAMPLE = 200          # B0's sampled CIGARs (scale_demo's --sample)
+SCALE_TIMEOUT_S = 600       # B0's run in a process of its own
+Y_MIN_SEQ_COVERAGE = 0.89   # upstream's yeast mapping test, per sequence
+Y_MIN_ALIGNED = 11_000_000  # upstream's MAF check of its yeast pair
+# B0's process: prints its peak RSS (its children's: the run alone)
+_RSS_SHIM = ("import resource, subprocess, sys\n"
+             "r = subprocess.run(sys.argv[1:])\n"
+             "print('PEAK_KB=%d' % resource.getrusage("
+             "resource.RUSAGE_CHILDREN).ru_maxrss, file=sys.stderr)\n"
+             "sys.exit(r.returncode)\n")
+
+
+@contextlib.contextmanager
+def kernel_events():
+    """CUDA events around every launch of either kernel in the block (the
+    libraries' launch entry points wrapped, and put back after); the
+    yielded dict holds {kernel: [launches, device ms]} once the block
+    ends."""
+    import torch
+
+    from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
+
+    got: dict = {}
+    wrapped = []
+    for name, lib in (("seg_wfa", wfa_seg._lib()),
+                      ("sweep_wfa", wfa_sweep._lib())):
+        fn = name + "_launch"
+        orig, evs = getattr(lib, fn), []
+
+        def timed(*a, _orig=orig, _evs=evs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = _orig(*a)
+            e1.record()
+            _evs.append((e0, e1))
+            return err
+
+        setattr(lib, fn, timed)
+        wrapped.append((name, lib, fn, orig, evs))
+    try:
+        yield got
+    finally:
+        for name, lib, fn, orig, evs in wrapped:
+            setattr(lib, fn, orig)
+        torch.cuda.synchronize()
+        for name, lib, fn, orig, evs in wrapped:
+            got[name] = [len(evs), sum(a.elapsed_time(b) for a, b in evs)]
+
+
+@contextlib.contextmanager
+def index_bytes():
+    """The bytes of the tensors that each DeviceL1 and DeviceL2 built in
+    the block holds (the target index on the card), and of the numpy
+    columns it keeps on the host: {class: bytes, class + " host":
+    bytes}."""
+    import torch
+
+    from wfmash_tpu_torch.map import l1_device, l2_device
+
+    got: dict = {}
+    saved = []
+    for cls in (l1_device.DeviceL1, l2_device.DeviceL2):
+        def counted(self, *a, _init=cls.__init__, _name=cls.__name__, **kw):
+            _init(self, *a, **kw)
+            held = list(vars(self).values())
+            got[_name] = got.get(_name, 0) + sum(
+                v.numel() * v.element_size() for v in held
+                if torch.is_tensor(v))
+            got[_name + " host"] = got.get(_name + " host", 0) + sum(
+                v.nbytes for v in held if isinstance(v, np.ndarray))
+
+        saved.append((cls, cls.__init__))
+        cls.__init__ = counted
+    try:
+        yield got
+    finally:
+        for cls, init in saved:
+            cls.__init__ = init
+
+
+def scale_child(argv):
+    """The port's CLI in this process, as the scale phase runs B0 (under
+    _RSS_SHIM); its exit code. One `[scale child] {...}` line on the
+    standard error: the CLI's wall, the kernels' launches and device ms,
+    the perf counters, the index's bytes on the card and the card's peak
+    allocated bytes."""
+    import torch
+
+    from wfmash_tpu_torch import cli
+    from wfmash_tpu_torch.utils import perf
+
+    t0 = time.monotonic()
+    with kernel_events() as kev, index_bytes() as ib:
+        rc = cli.main(argv)
+    wall = time.monotonic() - t0
+    sys.stdout.flush()
+    print("[scale child] " + json.dumps(dict(
+        rc=rc, wall=wall, kernels=kev, perf=perf.snapshot(), index_bytes=ib,
+        peak_device_bytes=torch.cuda.max_memory_allocated())),
+        file=sys.stderr, flush=True)
+    return rc
+
+
+def _scale_in_process(argv, out, env):
+    """One in-process run of the port's CLI on the card: what the
+    `[scale <case>]` line reports."""
+    import torch
+
+    from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
+    from wfmash_tpu_torch.utils import perf
+
+    perf.reset()
+    wfa_seg.LAUNCHES = wfa_sweep.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    with kernel_events() as kev, index_bytes() as ib:
+        rc, wall, text = _cli_call(argv, out, True, **env)
+    if rc != 0:
+        raise RuntimeError(f"the CLI exits {rc}")
+    if [kev["seg_wfa"][0], kev["sweep_wfa"][0]] != [wfa_seg.LAUNCHES,
+                                                     wfa_sweep.LAUNCHES]:
+        raise RuntimeError("launch counts and launch events disagree")
+    return dict(wall=wall, text=text, kernels=kev, perf=perf.snapshot(),
+                index_bytes=ib,
+                peak_device_bytes=torch.cuda.max_memory_allocated())
+
+
+def _scale_subprocess(argv, out, env):
+    """B0's run: scale_child in a process of its own under _RSS_SHIM, the
+    output in out; the child's report with the CLI's messages and the peak
+    RSS added. Every process it starts is ended before it returns."""
+    import signal
+
+    child = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+             "sys.exit(chip_smoke.scale_child(sys.argv[1:]))" % ROOT)
+    with open(out, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _RSS_SHIM, sys.executable, "-c", child,
+             *argv], stdout=fh, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, **env}, start_new_session=True)
+        try:
+            _, err = proc.communicate(timeout=SCALE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise RuntimeError(f"no end within {SCALE_TIMEOUT_S} s")
+    sys.stderr.write(err[-20000:])
+    m = re.search(r"\[scale child\] (.*)", err)
+    if proc.returncode != 0 or m is None:
+        raise RuntimeError(f"the CLI's process exits {proc.returncode}")
+    got = json.loads(m.group(1))
+    got["text"] = err
+    got["peak_rss_gb"] = int(re.search(r"PEAK_KB=(\d+)", err).group(1)) / 1e6
+    return got
+
+
+class _Seqs:
+    """Sequences by name, as given (`known`) or fetched once from FASTA
+    files, and their reverse complements."""
+
+    def __init__(self, paths=(), known=None):
+        from wfmash_tpu_torch.io.fasta import FastaReader
+
+        self.readers = [FastaReader(p) for p in paths]
+        self.fwd: dict = dict(known or {})
+        self.rev: dict = {}
+
+    def get(self, name, rc=False):
+        from wfmash_tpu_torch.sketch.kmers import reverse_complement
+
+        if name not in self.fwd:
+            r = next(r for r in self.readers if name in r)
+            self.fwd[name] = r.fetch(name)
+        if not rc:
+            return self.fwd[name]
+        if name not in self.rev:
+            self.rev[name] = bytes(reverse_complement(
+                np.frombuffer(self.fwd[name], np.uint8)))
+        return self.rev[name]
+
+
+def replay_row(line, seqs):
+    """(replays, aligned bases) of one PAF row with a CIGAR: every `=` of
+    the port's align/cigar.py matches and every `X` mismatches, and the
+    CIGAR spans the row's query and target intervals exactly (pafcheck's
+    rule); aligned bases are its M, = and X columns."""
+    from wfmash_tpu_torch.align import cigar as C
+
+    f = line.rstrip("\n").split("\t")
+    ops = C.parse(next(c[5:] for c in f[12:] if c.startswith("cg:Z:")))
+    qs, qe, ts, te = int(f[2]), int(f[3]), int(f[7]), int(f[8])
+    q = seqs.get(f[0], f[4] == "-")
+    q_start = len(q) - qe if f[4] == "-" else qs
+    span_q = sum(n for n, op in ops if op in "M=XI")
+    span_t = sum(n for n, op in ops if op in "M=XD")
+    ok = (span_q, span_t) == (qe - qs, te - ts) and C.validate(
+        ops, q, seqs.get(f[5]), q_start, ts)
+    return ok, sum(n for n, op in ops if op in "M=X")
+
+
+def _covered(intervals):
+    """Bases under the union of [start, end) intervals."""
+    cov = end = 0
+    for a, b in sorted(intervals):
+        a = max(a, end)
+        if b > a:
+            cov += b - a
+            end = b
+    return cov
+
+
+def seq_coverage(paf, fai):
+    """{sequence: share of its bases under the union of its rows' query
+    intervals} for each sequence of a .fai that `-L` leaves a target: one
+    of a lower id (file order) in another PanSN group (`-Y '#'`)."""
+    lens, groups = {}, []
+    with open(fai) as fh:
+        for ln in fh:
+            name, n = ln.split("\t")[:2]
+            lens[name] = int(n)
+            groups.append(name[:name.rfind("#") + 1])
+    ivs: dict = {}
+    for ln in paf.decode().splitlines():
+        f = ln.split("\t")
+        ivs.setdefault(f[0], []).append((int(f[2]), int(f[3])))
+    return {name: _covered(ivs.get(name, ())) / lens[name]
+            for i, name in enumerate(lens)
+            if any(g != groups[i] for g in groups[:i])}
+
+
+def _scale_line(case, r, rows, inputs_s):
+    """The `[scale <case>]` line of a run's report (inputs_s: the seconds
+    its inputs took to make, 0 when an earlier case made them)."""
+    snap = r["perf"]
+    (a_n, a_ms), (b_n, b_ms) = r["kernels"]["seg_wfa"], \
+        r["kernels"]["sweep_wfa"]
+    text = r["text"]
+    extra = (f", host peak RSS {r['peak_rss_gb']:.3f} GB"
+             if "peak_rss_gb" in r else "")
+    log(f"[scale {case}] inputs {inputs_s:.1f} s; wall {r['wall']:.2f} s "
+        f"(mapping done in "
+        f"{_done_in(text, 'mapping'):.2f} s, aligning done in "
+        f"{_done_in(text, 'aligning'):.2f} s), {rows} rows, seg_wfa "
+        f"{a_n} launches / {a_ms:.3f} ms, sweep_wfa {b_n} launches / "
+        f"{b_ms:.3f} ms, device L1 calls "
+        f"{int(snap.get('map.device_calls', 0))}, L2 calls "
+        f"{int(snap.get('map.l2_device_calls', 0))}, map.l1_rows "
+        f"{int(snap.get('map.l1_rows', 0))}, map.l1_host_rows "
+        f"{int(snap.get('map.l1_host_rows', 0))}, map.l2_rows "
+        f"{int(snap.get('map.l2_rows', 0))}, map.l2_host_rows "
+        f"{int(snap.get('map.l2_host_rows', 0))}, index on the card "
+        f"{r['index_bytes']} B, peak device memory "
+        f"{r['peak_device_bytes'] / 1e9:.3f} GB{extra}")
+    log(f"[scale {case}] counters: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(snap.items())))
+
+
+def scale_phase(tmp, keep=None):
+    """The port's CLI on the card, mapping through the device stages (the
+    default there), at the size its users run: the 100 Mb pair of
+    scripts/scale_demo.py (B) and a yeast-sized 8-genome PanSN pangenome
+    (Y), each made anew with this file's copy of its generator and held to
+    the manifest's input hashes. B1 (B mapped), Y1 (upstream's yeast
+    mapping test) and Y2 (upstream's S288C/Y12 pair, aligned) run in this
+    process and must be byte-equal to the reference's goldens; Y1's
+    sequences each covered >= Y_MIN_SEQ_COVERAGE, Y2's every CIGAR
+    replays and aligns > Y_MIN_ALIGNED bases. B0 (B aligned, the argv of
+    scripts/scale_demo.py) runs in a process of its own and meets that
+    script's gates (exit 0, peak RSS <= SCALE_RSS_GB, SCALE_SAMPLE sampled
+    CIGARs replay, query coverage >= MIN_COVERAGE, kernel A launched), and
+    its output's sha256 equals the reference's (its golden is its row
+    digests, which name the first differing row otherwise); its
+    alignment runs once more in this process, from B1's PAF (`-i`: B0's
+    mapping), under torch.profiler for the card's busy share while it
+    aligns. `keep`: a directory the outputs are copied to."""
+    import gzip
+
+    man = golden_manifest()
+    made: dict = {}
+    t_phase = time.monotonic()
+    for case in SCALE_CASES:
+        e = man["cases"][case]
+        t0 = time.monotonic()
+        argv = golden_case_argv(tmp, case, e, made, "scale")
+        inputs_s = time.monotonic() - t0
+        env = {"WFMASH_TPU_SEGMENTED": e["env"]["WFMASH_TPU_SEGMENTED"]}
+        out = os.path.join(tmp, f"scale_{case}.out")
+        r = (_scale_subprocess if case == "B0" else _scale_in_process)(
+            argv, out, env)
+        got = open(out, "rb").read()
+        if keep:
+            os.makedirs(keep, exist_ok=True)
+            with open(os.path.join(keep, f"{case}.paf.gz"), "wb") as fh:
+                fh.write(gzip.compress(got, mtime=0))
+        _scale_line(case, r, got.count(b"\n"), inputs_s)
+        if case in GOLDEN_DIGESTS:
+            same = hashlib.sha256(got).hexdigest() == e["output_sha256"]
+            log(f"[scale {case}] output sha256 "
+                + ("equal to the reference's" if same else
+                   "DIFFERS from the reference's"))
+            if not same:
+                diff = first_difference(golden_row_digests(got),
+                                        golden_bytes(e))
+                log(f"[scale {case}] first differing row digest, line "
+                    f"{diff[0]}:\n  port:      {diff[1][:400]!r}\n"
+                    f"  reference: {diff[2][:400]!r}")
+                raise RuntimeError(f"scale {case}: the port's output "
+                                   "differs from the reference's")
+        else:
+            want = golden_bytes(e)
+            log(f"[scale {case}] " + ("byte-equal to the reference"
+                                      if got == want else
+                                      "DIFFERS from the reference"))
+            if got != want:
+                line, a, b = first_difference(got, want)
+                log(f"[scale {case}] first difference, line {line}:\n"
+                    f"  port:      {a[:400]!r}\n  reference: {b[:400]!r}")
+                raise RuntimeError(f"scale {case}: the port's output "
+                                   "differs from the reference's")
+        if case == "Y1":
+            cov = seq_coverage(got, argv[0] + ".fai")
+            low = min(cov, key=cov.get)
+            log(f"[scale Y1] per-sequence coverage of {len(cov)} sequences "
+                f"(-L leaves the first group no target): least "
+                f"{cov[low]:.4f} ({low}), mean "
+                f"{sum(cov.values()) / len(cov):.4f}")
+            if cov[low] < Y_MIN_SEQ_COVERAGE:
+                raise RuntimeError(f"scale Y1: {low} covered {cov[low]:.4f}"
+                                   f" < {Y_MIN_SEQ_COVERAGE}")
+        if case == "Y2":
+            seqs = _Seqs([argv[0]])
+            lines = [ln for ln in got.decode().splitlines()
+                     if "\tcg:Z:" in ln]
+            checked = [replay_row(ln, seqs) for ln in lines]
+            bad = [i for i, (ok, _) in enumerate(checked) if not ok]
+            aligned = sum(n for _, n in checked)
+            log(f"[scale Y2] {len(lines)} CIGARs, {len(bad)} fail to "
+                f"replay; {aligned} aligned bases")
+            if not lines or bad or aligned <= Y_MIN_ALIGNED:
+                raise RuntimeError(f"scale Y2: rows {bad[:5]} fail to replay"
+                                   f" or {aligned} aligned bases <= "
+                                   f"{Y_MIN_ALIGNED}")
+        if case == "B0":
+            _check_paf("scale B0", out, _Seqs(argv[:2]), SCALE_SAMPLE)
+            if r["peak_rss_gb"] > SCALE_RSS_GB or not r["kernels"][
+                    "seg_wfa"][0]:
+                raise RuntimeError(
+                    f"scale B0: peak RSS {r['peak_rss_gb']:.3f} GB (ceiling "
+                    f"{SCALE_RSS_GB}), seg_wfa launches "
+                    f"{r['kernels']['seg_wfa'][0]}")
+            # its alignment once more, from B1's PAF: B0's own mapping
+            # (the same argv less -m), so the mapping is not run twice
+            realign = [*argv[:2], "-i", os.path.join(tmp, "scale_B1.out"),
+                       "-t", "1"]
+            with _env(**env):
+                from wfmash_tpu_torch import cli
+
+                _busy_share("scale B0 -i B1", lambda: cli.main(realign))
+    log(f"[scale] {len(SCALE_CASES)} cases in "
+        f"{time.monotonic() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -1690,7 +2149,6 @@ def mesh_cli_phase(tmp, pair, devs):
     (WFMASH_TPU_DEVICE_L1=mesh, WFMASH_TPU_ALIGN_MESH=force) over devs:
     the same PAF bytes, replay and coverage, and more kernel-A launches.
     Returns the mesh run's kernel-A launches."""
-    from wfmash_tpu_torch import cli
     from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
     from wfmash_tpu_torch.utils import perf
 
@@ -1715,7 +2173,8 @@ def mesh_cli_phase(tmp, pair, devs):
             f"{int(snap.get('align.device_calls', 0))}")
         if rc != 0:
             raise RuntimeError(f"mesh e2e {name}: exit {rc}")
-        _check_paf(f"mesh e2e {name}", out, pair)
+        _check_paf(f"mesh e2e {name}", out,
+                   _Seqs(known=dict(anc=pair[2], der=pair[3])))
         pafs[name] = open(out, "rb").read()
     same = pafs["mesh"] == pafs["default"]
     log(f"[mesh e2e] PAF of the mesh run {'byte-equal' if same else 'DIFFERS'}"
@@ -1724,8 +2183,6 @@ def mesh_cli_phase(tmp, pair, devs):
     if not same or launches["mesh"][0] <= 15:
         raise RuntimeError("the mesh run writes another PAF or launched "
                            f"kernel A {launches['mesh'][0]} times")
-    with _mesh_devices(devs), _env(WFMASH_TPU_SEGMENTED="auto", **mesh_env):
-        _busy_share("mesh e2e", lambda: cli.main([pt, pq, "-t", "1"]))
     return launches["mesh"][0]
 
 
@@ -1789,7 +2246,7 @@ def kernel_row(name, replaces, launches, rows):
 
 E2E_BP = 6_000_000     # the end-to-end pair's size
 PHASES = ("tiers", "spec", "sweep", "exact", "map", "e2e", "e2e0", "mesh",
-          "golden")
+          "golden", "scale")
 
 
 def main(argv=None) -> int:
@@ -1802,6 +2259,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--keep", default=None, metavar="DIR",
+                    help="copy the scale phase's outputs (gzip) into DIR")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1814,31 +2273,46 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     p = Penalties(5, 8, 2, 24, 1)    # the align path's defaults (params.py)
     rng = np.random.default_rng(SEED)
-    build_phase()
-    tiers = tier_phase(p, dev, rng) if "tiers" in phases else None
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.monotonic()
+        got = fn(*a, **kw)
+        walls[name] = time.monotonic() - t0
+        return got
+
+    timed("build", build_phase)
+    tiers = (timed("tiers", tier_phase, p, dev, rng) if "tiers" in phases
+             else None)
     if "spec" in phases:
-        spec_phase(p, dev, rng)
-    sweeps = sweep_phase(p, dev, rng) if "sweep" in phases else None
+        timed("spec", spec_phase, p, dev, rng)
+    sweeps = (timed("sweep", sweep_phase, p, dev, rng) if "sweep" in phases
+              else None)
     if "exact" in phases:
-        exact_phase(p, dev, rng)
+        timed("exact", exact_phase, p, dev, rng)
     seg_launches = sweep_launches = mesh_launches = None
     with tempfile.TemporaryDirectory() as tmp:
         if {"map", "e2e", "e2e0", "mesh"} & set(phases):
-            pair = write_pair(tmp, E2E_BP)
+            pair = timed("pair", write_pair, tmp, E2E_BP)
         if "map" in phases:
-            map_phase(pair, dev)
+            timed("map", map_phase, pair, dev)
         if "e2e" in phases:
-            launches, e2e_snap, e2e_wall = e2e_phase(tmp, pair)
+            launches, e2e_snap, e2e_wall = timed("e2e", e2e_phase, tmp, pair)
             seg_launches = launches[0]
             e2e = (os.path.join(tmp, "out1.paf"), launches, e2e_snap,
                    e2e_wall)
         if "e2e0" in phases:
-            (_, sweep_launches), _, _ = e2e_phase(tmp, pair,
-                                                  segmented=False)
+            (_, sweep_launches), _, _ = timed("e2e0", e2e_phase, tmp, pair,
+                                              segmented=False)
         if "mesh" in phases:
-            mesh_launches = mesh_phase(p, tmp, pair, rng)
+            mesh_launches = timed("mesh", mesh_phase, p, tmp, pair, rng)
         if "golden" in phases:
-            golden_phase(tmp, e2e if "e2e" in phases else None)
+            timed("golden", golden_phase, tmp,
+                  e2e if "e2e" in phases else None)
+        if "scale" in phases:
+            timed("scale", scale_phase, tmp, args.keep)
+    log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; in all {sum(walls.values()):.1f} s")
     if set(phases) != set(PHASES):
         log(f"partial run ({args.phases}): no result line")
         return 0

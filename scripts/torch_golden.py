@@ -16,6 +16,13 @@ that call through unchanged (the reference's own counters do not split
 tiers or spans). The manifest also holds `reference_sha256`, a hash of
 the reference package's sources (`reference_hash`).
 
+The cases of SCALE run at the size users run (the 100 Mb pair of
+scripts/scale_demo.py, a yeast-sized 8-genome pangenome) and are held on
+the card by chip_smoke.py's `scale` phase; B0 (the 100 Mb pair aligned,
+an output of 10.5 MB) keeps its row digests (`row_digests`) and the
+sha256 of the whole output instead of the bytes. On an 8-core CPU: B1
+85 s, Y1 43 s, Y2 261 s, B0 1174 s (the four ran at once).
+
     JAX_PLATFORMS=cpu python scripts/torch_golden.py [--cases M1,A1]
         [--work DIR] [--timeout S]
 
@@ -163,10 +170,69 @@ def indel_pair(d, bp, seed, snp, events):
     return ["t.fa", "t.fa.fai", "q.fa", "q.fa.fai"]
 
 
+# S288C's sixteen nuclear chromosomes, kb
+YEAST_KB = (230, 813, 317, 1532, 577, 270, 1091, 563, 440, 746, 667, 1078,
+            924, 784, 1091, 948)
+
+
+def yeast_pangenome(d, seed, scale=1.0):
+    """An 8-genome PanSN pangenome of yeast's shape. The ancestor has
+    YEAST_KB's chromosomes (12.07 Mb), over which copies of a 6 kb element
+    (30 of them) and of a 330 bp element (300), each diverged 1-3% and on
+    either strand, are written in place. Haplotype h (`g{h}#1#chr{c}`)
+    has 0.3% + 0.1% h of substitutions and 0.05% of 1-8 bp indels of both
+    directions; h = 2 and 5 carry a reciprocal translocation between two
+    chromosomes, h = 3 and 6 a 40 kb inversion, h = 4 a 20 kb deletion.
+    `scale` multiplies every length but the elements' (chromosomes, events)
+    and the numbers of copies (at least two of each). pan.fa with its
+    .fai."""
+    rng = np.random.default_rng(seed)
+    anc = [rng.integers(0, 4, round(kb * 1000 * scale)).astype(np.uint8)
+           for kb in YEAST_KB]
+    for unit, copies in ((6000, 30), (330, 300)):
+        elem = rng.integers(0, 4, unit).astype(np.uint8)
+        for c in rng.integers(0, len(anc), max(2, round(copies * scale))):
+            copy = _snps(rng, elem, rng.uniform(0.01, 0.03))
+            if rng.random() < 0.5:
+                copy = 3 - copy[::-1]
+            at = int(rng.integers(0, len(anc[c]) - unit))
+            anc[c][at:at + unit] = copy
+    seqs = {}
+    for h in range(8):
+        chroms = [_small_indels(rng, _snps(rng, a, 0.003 + 0.001 * h),
+                                0.0005, 8) for a in anc]
+        if h in (2, 5):
+            a, b = (int(x) for x in rng.choice(len(chroms), 2,
+                                               replace=False))
+            ia = int(rng.integers(len(chroms[a]) // 4,
+                                  3 * len(chroms[a]) // 4))
+            ib = int(rng.integers(len(chroms[b]) // 4,
+                                  3 * len(chroms[b]) // 4))
+            chroms[a], chroms[b] = (
+                np.concatenate([chroms[a][:ia], chroms[b][ib:]]),
+                np.concatenate([chroms[b][:ib], chroms[a][ia:]]))
+        if h in (3, 4, 6):
+            n = round((40_000 if h != 4 else 20_000) * scale)
+            c = int(rng.integers(0, len(chroms)))
+            at = int(rng.integers(0, len(chroms[c]) - n))
+            s = chroms[c]
+            if h == 4:
+                chroms[c] = np.concatenate([s[:at], s[at + n:]])
+            else:
+                chroms[c] = np.concatenate(
+                    [s[:at], 3 - s[at:at + n][::-1], s[at + n:]])
+        for c, s in enumerate(chroms):
+            seqs[f"g{h}#1#chr{c + 1}"] = ACGT[s].tobytes()
+    write_fasta(os.path.join(d, "pan.fa"), seqs)
+    return ["pan.fa", "pan.fa.fai"]
+
+
 GENERATORS = {"scale_pair": scale_pair, "pangenome": pangenome,
-              "indel_pair": indel_pair}
+              "indel_pair": indel_pair, "yeast_pangenome": yeast_pangenome}
 
 PAN = ("pangenome", dict(bp=400_000, seed=7))
+BIG = ("scale_pair", dict(bp=100_000_000, seed=42))
+YEAST = ("yeast_pangenome", dict(seed=8))
 A2_PAIR = ("indel_pair", dict(bp=50_000, seed=11, snp=0.005, events=True))
 
 # name -> (generator, its arguments, argv, environment over ENV); in the
@@ -188,7 +254,19 @@ CASES = {
            ["t.fa", "q.fa", "-t", "1"], {"WFMASH_TPU_SEGMENTED": "0"}),
     "A0": ("scale_pair", dict(bp=6_000_000, seed=42),
            ["anc.fa.gz", "der.fa.gz", "-t", "1"], {}),
+    # at the size its users run: the 100 Mb pair of scripts/scale_demo.py
+    # and upstream's yeast tests (-p 95 -n 7 -m -L -Y '#'; a -T/-Q pair)
+    "B1": (*BIG, ["anc.fa.gz", "der.fa.gz", "-m", "-t", "1"], {}),
+    "Y1": (*YEAST, ["pan.fa", "-p", "95", "-n", "7", "-m", "-L", "-Y", "#",
+                    "-t", "4"], {}),
+    "Y2": (*YEAST, ["pan.fa", "-T", "g0#", "-Q", "g1#", "-t", "4"], {}),
+    "B0": (*BIG, ["anc.fa.gz", "der.fa.gz", "-t", "1"], {}),
 }
+# the cases chip_smoke.py's scale phase runs (its golden phase and the
+# tier-1 tests leave them out: minutes each)
+SCALE = ("B1", "Y1", "Y2", "B0")
+# the cases whose output is kept as row digests (row_digests), not bytes
+DIGESTS = ("B0",)
 
 
 def make_inputs(case, d):
@@ -224,12 +302,28 @@ def reference_hash(root=ROOT):
 
 
 def output_name(case, nbytes, sam):
+    if case in DIGESTS:
+        return case + ".rows.gz"
     ext = ".sam" if sam else ".paf"
     return case + ext + (".gz" if nbytes > GZIP_OVER else "")
 
 
+def row_digests(out):
+    """What a DIGESTS case keeps of an output too large for the tree: a
+    line a row, its first 12 columns verbatim and the sha256 of the rest
+    (the tags, CIGAR among them); a port's output is held to it row by
+    row (chip_smoke.first_difference on both sides' digests)."""
+    lines = []
+    for ln in out.splitlines():
+        cols = ln.split(b"\t")
+        tags = hashlib.sha256(b"\t".join(cols[12:])).hexdigest().encode()
+        lines.append(b"\t".join(cols[:12] + [tags]) + b"\n")
+    return b"".join(lines)
+
+
 def read_output(entry, golden=GOLDEN):
-    """The golden output bytes of a manifest entry, uncompressed."""
+    """The golden file of a manifest entry, uncompressed: the output bytes,
+    or for a DIGESTS case its row digests."""
     path = os.path.join(golden, entry["output"])
     with open(path, "rb") as fh:
         data = fh.read()
@@ -323,6 +417,9 @@ def store(case, entry, out, golden=GOLDEN):
     """Write the output file and merge the entry into manifest.json (under
     a lock: several cases may run at once)."""
     os.makedirs(golden, exist_ok=True)
+    if case in DIGESTS:
+        out = row_digests(out)
+        entry["digests_sha256"] = hashlib.sha256(out).hexdigest()
     data = (gzip.compress(out, mtime=0) if entry["output"].endswith(".gz")
             else out)
     with open(os.path.join(golden, entry["output"]), "wb") as fh:

@@ -23,3 +23,8 @@ jax.config.update("jax_platforms", "cpu")
 # persistent compilation cache: the WFA sweep kernels are compile-heavy
 jax.config.update("jax_compilation_cache_dir", "/tmp/wfmash_tpu_jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: takes minutes; left out of the tier-1 run")

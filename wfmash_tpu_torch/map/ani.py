@@ -33,17 +33,33 @@ from ..sketch.kmers import canonical_kmer_hashes
 
 ESTIMATION_K = 21
 ESTIMATION_SKETCH_SIZE = 4096
+# k-mers hashed a block at a time: a whole sequence's hash arrays take
+# ~17 bytes a base (1.7 GB for a 100 Mb chromosome)
+SKETCH_BLOCK = 1 << 22
 
 
 def log(msg):
     print(msg, file=sys.stderr)
 
 
+def _bottom(h: np.ndarray, size: int) -> np.ndarray:
+    """The bottom-`size` multiset of h, ascending."""
+    if len(h) > size:
+        h = np.partition(h, size)[:size]
+    return np.sort(h)
+
+
 def _sequence_sketch(seq: bytes, k: int, size: int) -> np.ndarray:
-    _, canon, _ = canonical_kmer_hashes(seq, k)
-    if len(canon) <= size:
-        return np.sort(canon)
-    return np.partition(canon, size)[:size].copy()  # bottom-`size` multiset
+    """Bottom-`size` multiset of seq's canonical k-mer hashes, ascending,
+    taken SKETCH_BLOCK k-mers at a time (blocks overlap by k - 1 bases, so
+    each k-mer is in one block; a bottom multiset of bottom multisets is
+    the whole one's)."""
+    best = np.empty(0, dtype=np.uint64)
+    for i0 in range(0, max(len(seq) - k + 1, 1), SKETCH_BLOCK):
+        _, canon, _ = canonical_kmer_hashes(seq[i0:i0 + SKETCH_BLOCK + k - 1],
+                                            k)
+        best = _bottom(np.concatenate([best, canon]), size)
+    return best
 
 
 def _multiset_bottom(parts: list[np.ndarray], size: int) -> np.ndarray:

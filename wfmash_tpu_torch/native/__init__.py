@@ -195,15 +195,18 @@ def winnow_minmers_native(seq: bytes, k: int, window_size: int,
         if out.value:
             lib.free_records(out)
         return np.empty(0, dtype=RECORD_DTYPE)
-    raw = ctypes.string_at(out.value, n * _C_RECORD_DTYPE.itemsize)
-    lib.free_records(out)
-    c_rec = np.frombuffer(raw, dtype=_C_RECORD_DTYPE)
+    # read in place, then freed: no copy of the native buffer
+    c_rec = np.frombuffer(
+        (ctypes.c_char * (n * _C_RECORD_DTYPE.itemsize)).from_address(
+            out.value), dtype=_C_RECORD_DTYPE)
     rec = np.empty(n, dtype=RECORD_DTYPE)
     rec["hash"] = c_rec["hash"]
     rec["wpos"] = c_rec["wpos"]
     rec["wpos_end"] = c_rec["wend"]
     rec["seq_id"] = c_rec["seq_id"]
     rec["strand"] = c_rec["strand"]
+    del c_rec
+    lib.free_records(out)
     return rec
 
 

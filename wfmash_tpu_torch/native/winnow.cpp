@@ -129,17 +129,174 @@ struct Entry {
     std::deque<Occ> poslist;
 };
 
-struct HeapItem {
+// The backlog holds up to one item a k-mer of the sequence (an expired
+// item leaves only when it surfaces), so its item's width is the scan's
+// memory: packed, pos and vote in one word, pos << 1 | (vote > 0), of 32
+// bits where positions fit (below 2^31: 12 bytes an item) and 64 above.
+// Ordered as (hash, pos) as before, since one position has one vote.
+template <typename PV>
+struct __attribute__((packed)) HeapItem {
     uint64_t hash;
-    int64_t pos;
-    int8_t vote;
+    PV pv;
+    HeapItem(uint64_t h, int64_t p, int8_t v)
+        : hash(h), pv((PV)(p * 2 + (v > 0 ? 1 : 0))) {}
+    int64_t pos() const { return (int64_t)(pv >> 1); }
+    int8_t vote() const { return (pv & 1) ? 1 : -1; }
     bool operator>(const HeapItem& o) const {
-        return hash != o.hash ? hash > o.hash : pos > o.pos;
+        return hash != o.hash ? hash > o.hash : pv > o.pv;
     }
 };
 
-using MinHeap =
-    std::priority_queue<HeapItem, std::vector<HeapItem>, std::greater<HeapItem>>;
+// on a deque: it grows by blocks, never by copying itself to twice its
+// size; the heap's operations and so its order are a vector's
+template <typename PV>
+using MinHeap = std::priority_queue<HeapItem<PV>, std::deque<HeapItem<PV>>,
+                                    std::greater<HeapItem<PV>>>;
+
+// k-mers hashed a block: the per-position arrays live one block at a
+// time, not the sequence's length
+const int64_t HASH_BLOCK = 1 << 20;
+
+// canonical_hashes' outputs for the k-mers at positions [i0, i1) of a raw
+// sequence (the k-mer at i is seq[i, i + k)), normalized on the fly into
+// s (scratch of i1 - i0 + k - 1 bytes). `ambig`, the winnow-style lazy
+// counter, carries from position i0 - 1 (0 before position 0), so blocks
+// taken in order give the whole sequence's arrays.
+void hash_block(const uint8_t* seq, int64_t i0, int64_t i1, int k,
+                uint8_t* s, uint64_t* canon, int8_t* vote,
+                uint8_t* valid_sketch, uint8_t* valid_winnow, int& ambig) {
+    const int64_t m = i1 - i0 + k - 1;
+    for (int64_t j = 0; j < m; j++) s[j] = T.norm[seq[i0 + j]];
+    std::vector<uint8_t> rc(k);
+    int nwin = 0;  // 'N's in s[j, j + k - 1) before step j
+    for (int j = 0; j < k - 1; j++) nwin += s[j] == 'N';
+    for (int64_t j = 0; j < i1 - i0; j++) {
+        nwin += s[j + k - 1] == 'N';
+        uint64_t fwd = murmur3_low64(&s[j], k, 42);
+        for (int t = 0; t < k; t++) rc[k - 1 - t] = T.comp[s[j + t]];
+        uint64_t bwd = murmur3_low64(rc.data(), k, 42);
+        canon[j] = fwd < bwd ? fwd : bwd;
+        vote[j] = fwd < bwd ? 1 : -1;
+        // sketch-style validity: no 'N' anywhere in the window
+        valid_sketch[j] = (fwd != bwd && nwin == 0) ? 1 : 0;
+        if (s[j + k - 1] == 'N') ambig = k;
+        valid_winnow[j] = (fwd != bwd && ambig == 0) ? 1 : 0;
+        if (ambig > 0) ambig--;
+        nwin -= s[j] == 'N';
+    }
+}
+
+// The windowed scan over the n k-mers of a raw sequence: its records,
+// unsorted, into `records` (winnow_scan's first part; PV: HeapItem's).
+template <typename PV>
+void scan(const uint8_t* seq, int64_t n, int k, int window_size,
+          int sketch_size, int32_t seq_id, std::vector<Record>& records) {
+    // the k-mers' hashes, a block at a time (b0: the block's first)
+    const int64_t nb = std::min(n, HASH_BLOCK);
+    std::vector<uint64_t> canon(nb);
+    std::vector<int8_t> vote(nb);
+    std::vector<uint8_t> s(nb + k - 1), vs(nb), vw(nb);
+    int64_t b0 = 0, b1 = 0;
+    int ambig = 0;
+
+    std::deque<HeapItem<PV>> q;      // arrival queue of valid kmers
+    std::map<uint64_t, Entry> sw;    // the sketch (ordered)
+    MinHeap<PV> heap;                // backlog
+
+    for (int64_t i = 0; i < n; i++) {
+        int64_t W = i + k - window_size;
+        if (i == b1) {
+            b0 = i;
+            b1 = std::min(n, i + HASH_BLOCK);
+            hash_block(seq, b0, b1, k, s.data(), canon.data(), vote.data(),
+                       vs.data(), vw.data(), ambig);
+        }
+
+        // expiry (at most one per step)
+        if (!q.empty() && q.front().pos() < W) {
+            HeapItem<PV> leaving = q.front();
+            q.pop_front();
+            if (!sw.empty() && leaving.hash <= sw.rbegin()->first) {
+                auto it = sw.find(leaving.hash);
+                Entry& e = it->second;
+                if (e.poslist.size() == 1) {
+                    records.push_back(
+                        {leaving.hash, e.wpos, W, seq_id,
+                         (int8_t)(e.strand < 0 ? -1 : 1)});
+                    sw.erase(it);
+                } else {
+                    if (e.strand - leaving.vote() == 0 || e.strand == 0) {
+                        records.push_back(
+                            {leaving.hash, e.wpos, W, seq_id,
+                             (int8_t)(e.strand < 0 ? -1 : 1)});
+                        e.wpos = W;
+                    }
+                    e.strand -= leaving.vote();
+                    e.poslist.pop_front();
+                }
+            }
+        }
+
+        // arrival
+        if (vw[i - b0]) {
+            HeapItem<PV> item(canon[i - b0], i, vote[i - b0]);
+            q.push_back(item);
+            auto it = sw.find(item.hash);
+            if (it != sw.end()) {
+                Entry& e = it->second;
+                e.poslist.push_back({i, item.vote()});
+                if (e.strand + item.vote() == 0 || e.strand == 0) {
+                    records.push_back({item.hash, e.wpos, W, seq_id,
+                                       (int8_t)(e.strand < 0 ? -1 : 1)});
+                    e.wpos = W;
+                }
+                e.strand += item.vote();
+            } else {
+                heap.push(item);
+            }
+        }
+
+        // sketch maintenance
+        if (W >= 0) {
+            while (!heap.empty() && heap.top().pos() < W) heap.pop();
+
+            if (!sw.empty() && !heap.empty() &&
+                (int)sw.size() == sketch_size &&
+                heap.top().hash < sw.rbegin()->first) {
+                auto it = std::prev(sw.end());
+                Entry& e = it->second;
+                records.push_back({it->first, e.wpos, W, seq_id,
+                                   (int8_t)(e.strand < 0 ? -1 : 1)});
+                for (const Occ& o : e.poslist) {
+                    if (o.pos > W) heap.push(HeapItem<PV>(it->first, o.pos, o.vote));
+                }
+                sw.erase(it);
+            }
+
+            while (!heap.empty() && (int)sw.size() < sketch_size) {
+                if (heap.top().pos() < W) {
+                    heap.pop();
+                    if (heap.empty()) break;
+                }
+                uint64_t nh = heap.top().hash;
+                Entry& e = sw[nh];
+                e.wpos = W;
+                e.strand = 0;
+                while (!heap.empty() && heap.top().hash == nh) {
+                    e.poslist.push_back({heap.top().pos(), heap.top().vote()});
+                    e.strand += heap.top().vote();
+                    heap.pop();
+                }
+            }
+        }
+    }
+
+    // flush open records
+    for (auto& [h, e] : sw) {
+        records.push_back({h, e.wpos, n, seq_id,
+                           (int8_t)(e.strand < 0 ? -1 : 1)});
+    }
+}
 
 }  // namespace
 
@@ -153,26 +310,12 @@ int64_t canonical_hashes(const uint8_t* seq, int64_t len, int k,
                          uint8_t* valid_sketch, uint8_t* valid_winnow) {
     int64_t n = len - k + 1;
     if (n <= 0) return 0;
-    std::vector<uint8_t> s(len), rc(k);
-    for (int64_t i = 0; i < len; i++) s[i] = T.norm[seq[i]];
-
-    // sketch-style validity: no 'N' anywhere in the window
-    std::vector<int32_t> ncum(len + 1, 0);
-    for (int64_t i = 0; i < len; i++)
-        ncum[i + 1] = ncum[i] + (s[i] == 'N' ? 1 : 0);
-
-    int ambig = 0;  // winnow-style lazy counter
-    for (int64_t i = 0; i < n; i++) {
-        uint64_t fwd = murmur3_low64(&s[i], k, 42);
-        for (int j = 0; j < k; j++) rc[k - 1 - j] = T.comp[s[i + j]];
-        uint64_t bwd = murmur3_low64(rc.data(), k, 42);
-        canon[i] = fwd < bwd ? fwd : bwd;
-        vote[i] = fwd < bwd ? 1 : -1;
-        bool nless = (ncum[i + k] - ncum[i]) == 0;
-        valid_sketch[i] = (fwd != bwd && nless) ? 1 : 0;
-        if (s[i + k - 1] == 'N') ambig = k;
-        valid_winnow[i] = (fwd != bwd && ambig == 0) ? 1 : 0;
-        if (ambig > 0) ambig--;
+    std::vector<uint8_t> s(std::min(n, HASH_BLOCK) + k - 1);
+    int ambig = 0;
+    for (int64_t i0 = 0; i0 < n; i0 += HASH_BLOCK) {
+        int64_t i1 = std::min(n, i0 + HASH_BLOCK);
+        hash_block(seq, i0, i1, k, s.data(), canon + i0, vote + i0,
+                   valid_sketch + i0, valid_winnow + i0, ambig);
     }
     return n;
 }
@@ -185,104 +328,11 @@ int64_t winnow_scan(const uint8_t* seq, int64_t len, int k, int window_size,
     int64_t n = len - k + 1;
     if (n <= 0) return 0;
 
-    std::vector<uint64_t> canon(n);
-    std::vector<int8_t> vote(n);
-    std::vector<uint8_t> vs(n), vw(n);
-    canonical_hashes(seq, len, k, canon.data(), vote.data(), vs.data(),
-                     vw.data());
-
     std::vector<Record> records;
-    std::deque<HeapItem> q;          // arrival queue of valid kmers
-    std::map<uint64_t, Entry> sw;    // the sketch (ordered)
-    MinHeap heap;                    // backlog
-
-    for (int64_t i = 0; i < n; i++) {
-        int64_t W = i + k - window_size;
-
-        // expiry (at most one per step)
-        if (!q.empty() && q.front().pos < W) {
-            HeapItem leaving = q.front();
-            q.pop_front();
-            if (!sw.empty() && leaving.hash <= sw.rbegin()->first) {
-                auto it = sw.find(leaving.hash);
-                Entry& e = it->second;
-                if (e.poslist.size() == 1) {
-                    records.push_back(
-                        {leaving.hash, e.wpos, W, seq_id,
-                         (int8_t)(e.strand < 0 ? -1 : 1)});
-                    sw.erase(it);
-                } else {
-                    if (e.strand - leaving.vote == 0 || e.strand == 0) {
-                        records.push_back(
-                            {leaving.hash, e.wpos, W, seq_id,
-                             (int8_t)(e.strand < 0 ? -1 : 1)});
-                        e.wpos = W;
-                    }
-                    e.strand -= leaving.vote;
-                    e.poslist.pop_front();
-                }
-            }
-        }
-
-        // arrival
-        if (vw[i]) {
-            HeapItem item{canon[i], i, vote[i]};
-            q.push_back(item);
-            auto it = sw.find(item.hash);
-            if (it != sw.end()) {
-                Entry& e = it->second;
-                e.poslist.push_back({i, item.vote});
-                if (e.strand + item.vote == 0 || e.strand == 0) {
-                    records.push_back({item.hash, e.wpos, W, seq_id,
-                                       (int8_t)(e.strand < 0 ? -1 : 1)});
-                    e.wpos = W;
-                }
-                e.strand += item.vote;
-            } else {
-                heap.push(item);
-            }
-        }
-
-        // sketch maintenance
-        if (W >= 0) {
-            while (!heap.empty() && heap.top().pos < W) heap.pop();
-
-            if (!sw.empty() && !heap.empty() &&
-                (int)sw.size() == sketch_size &&
-                heap.top().hash < sw.rbegin()->first) {
-                auto it = std::prev(sw.end());
-                Entry& e = it->second;
-                records.push_back({it->first, e.wpos, W, seq_id,
-                                   (int8_t)(e.strand < 0 ? -1 : 1)});
-                for (const Occ& o : e.poslist) {
-                    if (o.pos > W) heap.push({it->first, o.pos, o.vote});
-                }
-                sw.erase(it);
-            }
-
-            while (!heap.empty() && (int)sw.size() < sketch_size) {
-                if (heap.top().pos < W) {
-                    heap.pop();
-                    if (heap.empty()) break;
-                }
-                uint64_t nh = heap.top().hash;
-                Entry& e = sw[nh];
-                e.wpos = W;
-                e.strand = 0;
-                while (!heap.empty() && heap.top().hash == nh) {
-                    e.poslist.push_back({heap.top().pos, heap.top().vote});
-                    e.strand += heap.top().vote;
-                    heap.pop();
-                }
-            }
-        }
-    }
-
-    // flush open records
-    for (auto& [h, e] : sw) {
-        records.push_back({h, e.wpos, n, seq_id,
-                           (int8_t)(e.strand < 0 ? -1 : 1)});
-    }
+    if (n < ((int64_t)1 << 31))
+        scan<uint32_t>(seq, n, k, window_size, sketch_size, seq_id, records);
+    else
+        scan<uint64_t>(seq, n, k, window_size, sketch_size, seq_id, records);
 
     // drop empty/invalid, chunk long intervals (chunks appended after)
     std::vector<Record> kept, chunks;
@@ -298,7 +348,9 @@ int64_t winnow_scan(const uint8_t* seq, int64_t len, int k, int window_size,
             kept.push_back(r);
         }
     }
+    std::vector<Record>().swap(records);
     kept.insert(kept.end(), chunks.begin(), chunks.end());
+    std::vector<Record>().swap(chunks);
 
     std::stable_sort(kept.begin(), kept.end(),
                      [](const Record& a, const Record& b) {
@@ -314,6 +366,7 @@ int64_t winnow_scan(const uint8_t* seq, int64_t len, int k, int window_size,
             continue;
         final_recs.push_back(r);
     }
+    std::vector<Record>().swap(kept);
 
     Record* buf = (Record*)std::malloc(final_recs.size() * sizeof(Record));
     std::memcpy(buf, final_recs.data(), final_recs.size() * sizeof(Record));
