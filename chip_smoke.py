@@ -6,7 +6,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (g++), all started together;
 3. per segment tier, one full chunk of generated jobs packed by the port's
    pack_chunk: the segment kernel and its plain PyTorch version (on the
-   card, and on a CPU copy of every sixteenth row) must agree byte for byte
+   card, and on a CPU copy of every fourth row) must agree byte for byte
    (term col 8, the per-problem level counter, aside);
 4. the tiered solver on the card: every `ok` CIGAR must equal wfa_np's;
 5. per span-ladder step K = 256..4096, one seeded batch (both split axes,
@@ -72,12 +72,13 @@ Phases (any failure exits non-zero; nothing is caught):
    each sequence >= 0.89, Y2 replay every CIGAR and align > 11 Mb; B0
    runs in a process of its own and meets scale_demo.py's gates (peak RSS
    <= 8 GB, 200 sampled CIGARs replay, coverage >= 0.95, kernel A
-   launched) and the sha256 of the reference's output, then aligns once
-   more from B1's PAF (`-i`) under torch.profiler for the card's busy
-   share while it aligns (reported only).
+   launched) and the sha256 of the reference's output; B0's alignment
+   alone runs once more, from B1's PAF (`-i`), under torch.profiler for
+   the card's busy share while it aligns (reported only).
    Each case prints a `[scale <case>]` line (walls, rows, launches and
    CUDA-event ms of both kernels, device L1/L2 calls and the rows left to
-   the host, the index's bytes, peak device memory, B0's peak RSS).
+   the host, the index's bytes, peak device memory, B0's peak RSS and its
+   RSS over the run).
 The last lines are the card line, the kernel table as JSON, and the
 result as JSON.
 
@@ -123,10 +124,9 @@ MIN_COVERAGE = 0.95
 MIN_SPEC_CHECKS = 200
 MIN_DEVICE_SHARE = 0.90    # of fragments (L1) and candidates (L2)
 # the segment kernel's plain version runs on the card on every row of a
-# tier's chunk, and through run_seg's CPU path on every sixteenth row (a
-# row is one problem; the whole chunk took 27-94 s a tier on the CPU,
-# every fourth row 89 s over the five tiers)
-CPU_COPY_STRIDE = 16
+# tier's chunk, and through run_seg's CPU path on every fourth row (a
+# row is one problem; the whole chunk took 27-94 s a tier on the CPU)
+CPU_COPY_STRIDE = 4
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 INT_OPS_PER_S = 67e12          # non-tensor fp32 FLOP rate, published
@@ -354,8 +354,7 @@ def _diff(a, b):
 def tier_phase(p, dev, rng):
     """Kernel vs plain version on one full chunk per tier: the plain
     version runs on the card (its time is the one reported) and, through
-    run_seg's CPU path, on a CPU copy of every sixteenth row of that
-    buffer."""
+    run_seg's CPU path, on a CPU copy of every fourth row of that buffer."""
     import torch
 
     from wfmash_tpu_torch.align import wfa_seg
@@ -450,11 +449,6 @@ def spec_phase(p, dev, rng):
 # span-ladder steps of the exact engine: (K, shortest, longest block)
 SWEEP_STEPS = ((256, 1000, 2000), (512, 2000, 4000), (1024, 4000, 8000),
                (2048, 8000, 16000), (4096, 16000, 48000))
-# a ladder step's problems are cut to this many bases a side after they
-# are drawn (the K=4096 step's: 16-48 kb drawn, the rest of the batches
-# unchanged): the plain version's time grows with the deepest problem's
-# levels, and the step's check took 123-143 s of the run at 48 kb
-SWEEP_LONGEST = 32000
 SWEEP_BATCH = 128
 SWEEP_MAX_S = 30000
 SWEEP_CUT_S = 1400     # max_s of the batch that is cut short
@@ -591,7 +585,6 @@ def sweep_batches(rng, p):
     for K, lo, hi in SWEEP_STEPS:
         pairs = [_pair(rng, lo, hi, float(rng.uniform(0.02, 0.05)), 0.002)
                  for _ in range(SWEEP_BATCH)]
-        pairs = [(q[:SWEEP_LONGEST], t[:SWEEP_LONGEST]) for q, t in pairs]
         for i in (5, 77):                       # solved before the sweep
             pairs[i] = (pairs[i][0], pairs[i][0])
         batches.append((f"K={K}", K, pairs, range(0, SWEEP_BATCH, 3), p,
@@ -1538,6 +1531,7 @@ SCALE_SAMPLE = 200          # B0's sampled CIGARs (scale_demo's --sample)
 SCALE_TIMEOUT_S = 600       # B0's run in a process of its own
 Y_MIN_SEQ_COVERAGE = 0.89   # upstream's yeast mapping test, per sequence
 Y_MIN_ALIGNED = 11_000_000  # upstream's MAF check of its yeast pair
+SCALE_RSS_STEP_GB = 0.25    # GB: B0's RSS moves this much between points
 # B0's process: prints its peak RSS (its children's: the run alone)
 _RSS_SHIM = ("import resource, subprocess, sys\n"
              "r = subprocess.run(sys.argv[1:])\n"
@@ -1619,22 +1613,45 @@ def scale_child(argv):
     """The port's CLI in this process, as the scale phase runs B0 (under
     _RSS_SHIM); its exit code. One `[scale child] {...}` line on the
     standard error: the CLI's wall, the kernels' launches and device ms,
-    the perf counters, the index's bytes on the card and the card's peak
-    allocated bytes."""
+    the perf counters, the index's bytes on the card, the card's peak
+    allocated bytes and this process's RSS over the run ([s from the
+    CLI's start, GB] read from /proc/self/status every 0.2 s: the RSS
+    after `import torch`, then a point each time it moved by more than
+    SCALE_RSS_STEP_GB, so the CLI's "done in" messages place the peak in
+    its stages)."""
+    import threading
+
     import torch
 
     from wfmash_tpu_torch import cli
     from wfmash_tpu_torch.utils import perf
 
+    def rss_gb():
+        with open("/proc/self/status") as fh:
+            return next(int(ln.split()[1]) / 1e6 for ln in fh
+                        if ln.startswith("VmRSS"))
+
     t0 = time.monotonic()
+    rss, stop = [[0.0, rss_gb()]], threading.Event()
+
+    def sample():
+        while not stop.wait(0.2):
+            gb = rss_gb()
+            if abs(gb - rss[-1][1]) > SCALE_RSS_STEP_GB:
+                rss.append([time.monotonic() - t0, gb])
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
     with kernel_events() as kev, index_bytes() as ib:
         rc = cli.main(argv)
     wall = time.monotonic() - t0
+    stop.set()
+    sampler.join()
     sys.stdout.flush()
     print("[scale child] " + json.dumps(dict(
         rc=rc, wall=wall, kernels=kev, perf=perf.snapshot(), index_bytes=ib,
-        peak_device_bytes=torch.cuda.max_memory_allocated())),
-        file=sys.stderr, flush=True)
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        rss_timeline=rss)), file=sys.stderr, flush=True)
     return rc
 
 
@@ -1789,9 +1806,13 @@ def _scale_line(case, r, rows, inputs_s):
         f"{r['peak_device_bytes'] / 1e9:.3f} GB{extra}")
     log(f"[scale {case}] counters: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(snap.items())))
+    if "rss_timeline" in r:
+        log(f"[scale {case}] host RSS over the run (s from the CLI's start: "
+            "GB): " + ", ".join(f"{t:.1f}: {gb:.3f}"
+                                for t, gb in r["rss_timeline"]))
 
 
-def scale_phase(tmp, keep=None):
+def scale_phase(tmp):
     """The port's CLI on the card, mapping through the device stages (the
     default there), at the size its users run: the 100 Mb pair of
     scripts/scale_demo.py (B) and a yeast-sized 8-genome PanSN pangenome
@@ -1806,11 +1827,9 @@ def scale_phase(tmp, keep=None):
     CIGARs replay, query coverage >= MIN_COVERAGE, kernel A launched), and
     its output's sha256 equals the reference's (its golden is its row
     digests, which name the first differing row otherwise); its
-    alignment runs once more in this process, from B1's PAF (`-i`: B0's
-    mapping), under torch.profiler for the card's busy share while it
-    aligns. `keep`: a directory the outputs are copied to."""
-    import gzip
-
+    alignment alone runs once more in this process, from B1's PAF (`-i`:
+    B0's mapping), under torch.profiler for the card's busy share while it
+    aligns."""
     man = golden_manifest()
     made: dict = {}
     t_phase = time.monotonic()
@@ -1824,10 +1843,6 @@ def scale_phase(tmp, keep=None):
         r = (_scale_subprocess if case == "B0" else _scale_in_process)(
             argv, out, env)
         got = open(out, "rb").read()
-        if keep:
-            os.makedirs(keep, exist_ok=True)
-            with open(os.path.join(keep, f"{case}.paf.gz"), "wb") as fh:
-                fh.write(gzip.compress(got, mtime=0))
         _scale_line(case, r, got.count(b"\n"), inputs_s)
         if case in GOLDEN_DIGESTS:
             same = hashlib.sha256(got).hexdigest() == e["output_sha256"]
@@ -1891,7 +1906,8 @@ def scale_phase(tmp, keep=None):
             with _env(**env):
                 from wfmash_tpu_torch import cli
 
-                _busy_share("scale B0 -i B1", lambda: cli.main(realign))
+                _busy_share("scale B0, aligning alone: -i B1's PAF",
+                            lambda: cli.main(realign))
     log(f"[scale] {len(SCALE_CASES)} cases in "
         f"{time.monotonic() - t_phase:.1f} s")
 
@@ -2259,8 +2275,6 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
-    ap.add_argument("--keep", default=None, metavar="DIR",
-                    help="copy the scale phase's outputs (gzip) into DIR")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2310,7 +2324,7 @@ def main(argv=None) -> int:
             timed("golden", golden_phase, tmp,
                   e2e if "e2e" in phases else None)
         if "scale" in phases:
-            timed("scale", scale_phase, tmp, args.keep)
+            timed("scale", scale_phase, tmp)
     log("[phases] " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; in all {sum(walls.values()):.1f} s")
     if set(phases) != set(PHASES):

@@ -124,6 +124,49 @@ def test_row_digests_name_the_first_differing_row():
         assert (port.split(b"\t")[:12] == ref.split(b"\t")[:12]) == (col > 11)
 
 
+def test_case_inputs_beside_the_golden_phase(tmp_path, monkeypatch):
+    """(d) the scale phase makes its inputs in directories of its own
+    beside the golden phase's, in the one temporary directory of a run
+    (a whole chip_smoke.py run once stopped after B1: both phases
+    numbered directories golden<n> from 0), each case's argv names them, and
+    inputs that hash otherwise than the manifest records stop the case
+    as input drift."""
+    e = dict(generator="yeast_pangenome", args=REDUCED, argv=Y_MAP)
+    os.makedirs(tmp_path / "hashes")
+    e["inputs"] = chip_smoke.golden_inputs(e, str(tmp_path / "hashes"))
+    assert sorted(e["inputs"]) == ["pan.fa", "pan.fa.fai"]
+    run = tmp_path / "run"
+    os.makedirs(run)
+    argv = {prefix: chip_smoke.golden_case_argv(str(run), "Y1", e, {},
+                                                *extra)
+            for prefix, extra in (("golden", ()), ("scale", ("scale",)))}
+    assert argv["golden"][0] == str(run / "golden0" / "pan.fa")
+    assert argv["scale"][0] == str(run / "scale0" / "pan.fa")
+    assert argv["golden"][1:] == argv["scale"][1:] == Y_MAP[1:]
+    made = {}
+    chip_smoke.golden_case_argv(str(run), "Y1", e, made, "twice")
+    chip_smoke.golden_case_argv(str(run), "Y2", e, made, "twice")
+    assert sorted(os.listdir(run)) == ["golden0", "scale0", "twice0"]
+    drift = dict(e, inputs=dict(e["inputs"], **{"pan.fa": "0" * 64}))
+    with pytest.raises(RuntimeError, match=r"input drift: \['pan.fa'\]"):
+        chip_smoke.golden_case_argv(str(run), "Y1", drift, {}, "drift")
+
+    # the directories' names each phase asks for: stopped at its first
+    class Asked(Exception):
+        pass
+
+    def ask(tmp, case, e, made, prefix="golden"):
+        raise Asked(prefix)
+
+    monkeypatch.setattr(chip_smoke, "golden_case_argv", ask)
+    asked = []
+    for phase in (chip_smoke.golden_phase, chip_smoke.scale_phase):
+        with pytest.raises(Asked) as got:
+            phase(str(tmp_path))
+        asked.append(got.value.args[0])
+    assert asked == ["golden", "scale"]
+
+
 def test_scale_entries():
     """(d) every case of the scale phase is in the manifest with the
     script's generator, arguments, argv and inputs, and the wall the
@@ -203,7 +246,7 @@ def test_identity_sketch_in_blocks(monkeypatch):
 
 def test_native_scan_equals_reference_across_blocks():
     """The port's native minmer scan, which now hashes k-mers a block of
-    2^20 at a time and keeps its backlog in 12-byte items on a deque,
+    2^20 at a time and keeps its backlog in 16-byte items on a deque,
     writes the reference's records: across block boundaries, with Ns,
     repeats (equal hashes in the backlog) and both strands."""
     import numpy as np

@@ -131,15 +131,13 @@ struct Entry {
 
 // The backlog holds up to one item a k-mer of the sequence (an expired
 // item leaves only when it surfaces), so its item's width is the scan's
-// memory: packed, pos and vote in one word, pos << 1 | (vote > 0), of 32
-// bits where positions fit (below 2^31: 12 bytes an item) and 64 above.
-// Ordered as (hash, pos) as before, since one position has one vote.
-template <typename PV>
-struct __attribute__((packed)) HeapItem {
+// memory: pos and vote in one word, pos << 1 | (vote > 0), 16 bytes an
+// item. Ordered as (hash, pos) as before, since one position has one vote.
+struct HeapItem {
     uint64_t hash;
-    PV pv;
+    uint64_t pv;
     HeapItem(uint64_t h, int64_t p, int8_t v)
-        : hash(h), pv((PV)(p * 2 + (v > 0 ? 1 : 0))) {}
+        : hash(h), pv((uint64_t)(p * 2 + (v > 0 ? 1 : 0))) {}
     int64_t pos() const { return (int64_t)(pv >> 1); }
     int8_t vote() const { return (pv & 1) ? 1 : -1; }
     bool operator>(const HeapItem& o) const {
@@ -149,9 +147,8 @@ struct __attribute__((packed)) HeapItem {
 
 // on a deque: it grows by blocks, never by copying itself to twice its
 // size; the heap's operations and so its order are a vector's
-template <typename PV>
-using MinHeap = std::priority_queue<HeapItem<PV>, std::deque<HeapItem<PV>>,
-                                    std::greater<HeapItem<PV>>>;
+using MinHeap = std::priority_queue<HeapItem, std::deque<HeapItem>,
+                                    std::greater<HeapItem>>;
 
 // k-mers hashed a block: the per-position arrays live one block at a
 // time, not the sequence's length
@@ -187,8 +184,7 @@ void hash_block(const uint8_t* seq, int64_t i0, int64_t i1, int k,
 }
 
 // The windowed scan over the n k-mers of a raw sequence: its records,
-// unsorted, into `records` (winnow_scan's first part; PV: HeapItem's).
-template <typename PV>
+// unsorted, into `records` (winnow_scan's first part).
 void scan(const uint8_t* seq, int64_t n, int k, int window_size,
           int sketch_size, int32_t seq_id, std::vector<Record>& records) {
     // the k-mers' hashes, a block at a time (b0: the block's first)
@@ -199,9 +195,9 @@ void scan(const uint8_t* seq, int64_t n, int k, int window_size,
     int64_t b0 = 0, b1 = 0;
     int ambig = 0;
 
-    std::deque<HeapItem<PV>> q;      // arrival queue of valid kmers
+    std::deque<HeapItem> q;      // arrival queue of valid kmers
     std::map<uint64_t, Entry> sw;    // the sketch (ordered)
-    MinHeap<PV> heap;                // backlog
+    MinHeap heap;                // backlog
 
     for (int64_t i = 0; i < n; i++) {
         int64_t W = i + k - window_size;
@@ -214,7 +210,7 @@ void scan(const uint8_t* seq, int64_t n, int k, int window_size,
 
         // expiry (at most one per step)
         if (!q.empty() && q.front().pos() < W) {
-            HeapItem<PV> leaving = q.front();
+            HeapItem leaving = q.front();
             q.pop_front();
             if (!sw.empty() && leaving.hash <= sw.rbegin()->first) {
                 auto it = sw.find(leaving.hash);
@@ -239,7 +235,7 @@ void scan(const uint8_t* seq, int64_t n, int k, int window_size,
 
         // arrival
         if (vw[i - b0]) {
-            HeapItem<PV> item(canon[i - b0], i, vote[i - b0]);
+            HeapItem item(canon[i - b0], i, vote[i - b0]);
             q.push_back(item);
             auto it = sw.find(item.hash);
             if (it != sw.end()) {
@@ -268,7 +264,8 @@ void scan(const uint8_t* seq, int64_t n, int k, int window_size,
                 records.push_back({it->first, e.wpos, W, seq_id,
                                    (int8_t)(e.strand < 0 ? -1 : 1)});
                 for (const Occ& o : e.poslist) {
-                    if (o.pos > W) heap.push(HeapItem<PV>(it->first, o.pos, o.vote));
+                    if (o.pos > W)
+                        heap.push(HeapItem(it->first, o.pos, o.vote));
                 }
                 sw.erase(it);
             }
@@ -329,10 +326,7 @@ int64_t winnow_scan(const uint8_t* seq, int64_t len, int k, int window_size,
     if (n <= 0) return 0;
 
     std::vector<Record> records;
-    if (n < ((int64_t)1 << 31))
-        scan<uint32_t>(seq, n, k, window_size, sketch_size, seq_id, records);
-    else
-        scan<uint64_t>(seq, n, k, window_size, sketch_size, seq_id, records);
+    scan(seq, n, k, window_size, sketch_size, seq_id, records);
 
     // drop empty/invalid, chunk long intervals (chunks appended after)
     std::vector<Record> kept, chunks;
