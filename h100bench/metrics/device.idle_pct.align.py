@@ -1,0 +1,8 @@
+"""Share of the align window in which the card ran nothing (torch.profiler's
+CUDA events; moves aligned_mbps)."""
+
+from benchlib.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
