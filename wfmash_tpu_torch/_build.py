@@ -16,6 +16,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from .utils import perf
+
 _DIR = Path(__file__).parent
 _SRC = _DIR / "csrc"
 _OUT = _DIR / "_build"
@@ -60,8 +62,9 @@ def load(name: str) -> ctypes.CDLL:
         if not so.exists():
             _OUT.mkdir(exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                str(src)], capture_output=True, text=True)
+            with perf.span("build.kernel"):
+                r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                    str(src)], capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n"
                                    f"{r.stderr}")

@@ -240,24 +240,21 @@ def finish_records_batched(jobs: list, mains: list, engine,
     """Batched patch + swizzle for records whose mains are computed.
     trace: optional list receiving (job_idx, kind, q_erode, t_erode,
     applied) patch rows (--path-patching-tsv)."""
-    import time as _time
-
     from ..utils import perf
 
     keep = [i for i, ops in enumerate(mains) if ops is not None]
     out: list = [None] * len(jobs)
-    _t0 = _time.monotonic()
-    if not disable_chain_patching:
-        ptrace = [] if trace is not None else None
-        patched = patch_boundaries_batched(
-            [(mains[i], jobs[i].query, jobs[i].target) for i in keep],
-            engine, trace=ptrace)
-        if trace is not None:
-            trace.extend((keep[pi], kind, qe, te, ap)
-                         for pi, kind, qe, te, ap in ptrace)
-    else:
-        patched = [mains[i] for i in keep]
-    perf.add("align.patch_s", _time.monotonic() - _t0)
+    with perf.span("align.patch"):
+        if not disable_chain_patching:
+            ptrace = [] if trace is not None else None
+            patched = patch_boundaries_batched(
+                [(mains[i], jobs[i].query, jobs[i].target) for i in keep],
+                engine, trace=ptrace)
+            if trace is not None:
+                trace.extend((keep[pi], kind, qe, te, ap)
+                             for pi, kind, qe, te, ap in ptrace)
+        else:
+            patched = [mains[i] for i in keep]
     for i, ops in zip(keep, patched):
         job = jobs[i]
         ops = C.try_swap_start_pattern(ops, job.query, job.target, 0, 0)

@@ -136,7 +136,8 @@ class _NormCache:
         if self._reader.seq_len(name) > self._budget[0]:
             self._seqs[name] = None
             return None
-        seq = bytes(normalize(self._reader.fetch(name)))
+        with perf.span("align.loop.fetch"):
+            seq = bytes(normalize(self._reader.fetch(name)))
         self._budget[0] -= len(seq)
         self._seqs[name] = seq
         return seq
@@ -156,14 +157,16 @@ def build_job(row, ref_reader: FastaReader, query_reader: FastaReader,
     if tfull is not None:
         target = tfull[row["r_start"]:row["r_end"]]
     else:
-        target = bytes(normalize(ref_reader.fetch(
-            row["target_name"], row["r_start"], row["r_end"] - 1)))
+        with perf.span("align.loop.fetch"):
+            target = bytes(normalize(ref_reader.fetch(
+                row["target_name"], row["r_start"], row["r_end"] - 1)))
     qfull = query_cache.get(row["query_name"]) if query_cache else None
     if qfull is not None:
         qnorm = qfull[row["q_start"]:row["q_end"]]
     else:
-        qnorm = bytes(normalize(query_reader.fetch(
-            row["query_name"], row["q_start"], row["q_end"] - 1)))
+        with perf.span("align.loop.fetch"):
+            qnorm = bytes(normalize(query_reader.fetch(
+                row["query_name"], row["q_start"], row["q_end"] - 1)))
     if row["is_rev"]:
         query = bytes(reverse_complement(bytearray(qnorm)))
     else:
@@ -492,6 +495,16 @@ def _dump_plans(params, chunk, base_idx):
 
 
 def run_alignment(params: AlignParams, out, device) -> None:
+    """The align loop, in the span align.loop: align.loop.parse (the
+    mapping PAF read and parsed), align.loop.fetch (each sequence fetched
+    and normalised: a cache miss, or a record's slices where the cache's
+    budget is spent), the engine's and the patching's spans, and
+    align.loop.write (each batch's rows written)."""
+    with perf.span("align.loop"):
+        _run_alignment(params, out, device)
+
+
+def _run_alignment(params: AlignParams, out, device) -> None:
     if params.target_padding < 0 or params.query_padding < 0:
         # unfinalized params would align unpadded records: apply the
         # reference's defaults for the standard 1 kb mapping window
@@ -500,7 +513,8 @@ def run_alignment(params: AlignParams, out, device) -> None:
     query_reader = FastaReader(params.query_sequences[0])
 
     rows = []
-    with open(params.mashmap_paf_file) as fh:
+    with perf.span("align.loop.parse"), \
+            open(params.mashmap_paf_file) as fh:
         for line in fh:
             if not line.strip():
                 continue
@@ -577,41 +591,47 @@ def run_alignment(params: AlignParams, out, device) -> None:
                         f"{q_er}\t{t_er}\t{int(applied)}\n")
                 tsv.flush()
             meter.increment(len(chunk))
-            for job, ops in zip(chunk, ops_list):
-                if ops is None:
-                    continue
-                if params.sam_format:
-                    from .sam import write_sam_row
-
-                    write_sam_row(
-                        out, job, ops,
-                        params.min_identity, params.min_alignment_length,
-                        params.min_block_identity,
-                        no_seq=params.no_seq_in_sam,
-                        emit_md=params.emit_md_tag,
-                    )
-                else:
-                    write_paf_row(
-                        out, job, ops,
-                        params.min_identity, params.min_alignment_length,
-                        params.min_block_identity,
-                    )
-                n_aligned += 1
-            # inversion patches found inside this chunk's blocks emit as
-            # extra rows (PAF only)
-            if not params.sam_format and not params.strict_parity:
-                for inv in engine.inversions:
-                    if write_inversion_row(out, chunk[inv["ji"]], inv):
-                        n_aligned += 1
+            with perf.span("align.loop.write"):
+                n_aligned += _write_rows(out, params, chunk, ops_list,
+                                         engine.inversions)
     finally:
         if tsv is not None:
             tsv.close()
     meter.finish()
     log(f"[wfmash::align] total aligned records = {n_aligned}")
-    if os.environ.get("WFMASH_TPU_PERF"):
-        snap = perf.snapshot()
-        for k in sorted(snap):
-            log(f"[wfmash::perf] {k} = {snap[k]:.3f}")
+
+
+def _write_rows(out, params, chunk, ops_list, inversions) -> int:
+    """A batch's PAF or SAM rows, and its inversion rows (PAF only);
+    returns the records aligned."""
+    n_aligned = 0
+    for job, ops in zip(chunk, ops_list):
+        if ops is None:
+            continue
+        if params.sam_format:
+            from .sam import write_sam_row
+
+            write_sam_row(
+                out, job, ops,
+                params.min_identity, params.min_alignment_length,
+                params.min_block_identity,
+                no_seq=params.no_seq_in_sam,
+                emit_md=params.emit_md_tag,
+            )
+        else:
+            write_paf_row(
+                out, job, ops,
+                params.min_identity, params.min_alignment_length,
+                params.min_block_identity,
+            )
+        n_aligned += 1
+    # inversion patches found inside this chunk's blocks emit as extra
+    # rows (PAF only)
+    if not params.sam_format and not params.strict_parity:
+        for inv in inversions:
+            if write_inversion_row(out, chunk[inv["ji"]], inv):
+                n_aligned += 1
+    return n_aligned
 
 
 def write_sam_header(out, ref_reader: FastaReader) -> None:

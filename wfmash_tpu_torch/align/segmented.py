@@ -572,285 +572,287 @@ class SegmentedEngine:
         return self.align_batch([(query, target, ends_free)])[0]
 
     def align_batch(self, jobs, bounds=None):
-        import time as _time
+        from ..utils import perf
 
+        with perf.span("align.engine") as eng:
+            return self._align_batch(jobs, bounds, eng)
+
+    def _align_batch(self, jobs, bounds, eng):
+        """align_batch's phases, each a span under `eng`: planning, the
+        device thread's solve beside the host exact pass and the wait
+        for it, escalations, the inversion try, the stitching."""
         from ..utils import perf
         from .cigar import merge_adjacent
 
-        _t0 = _time.monotonic()
-        n = len(jobs)
-        plans: list = [None] * n      # per job: list of piece descriptors
-        exact_jobs: list = []         # (job_index, piece_index, q, t, ef)
-        seg_jobs: list = []           # (job_index, piece_index, q, t, ef)
-        placed_jobs: list = []        # (ji, pi, mid_q, mid_t, pre, post)
-        whole: set = set()            # ji whose piece 0 IS the whole job
-        bounds_of: dict = {}          # ji -> (bounds_q, bounds_t)
-        # NOTE: self.inversions accumulates (the align loop clears it before
-        # each record batch and drains it after — patch-stage align()
-        # calls in between must not wipe the mains' records)
+        with perf.span("align.plan"):
+            n = len(jobs)
+            plans: list = [None] * n      # per job: list of piece descriptors
+            exact_jobs: list = []         # (job_index, piece_index, q, t, ef)
+            seg_jobs: list = []           # (job_index, piece_index, q, t, ef)
+            placed_jobs: list = []        # (ji, pi, mid_q, mid_t, pre, post)
+            whole: set = set()            # ji whose piece 0 IS the whole job
+            bounds_of: dict = {}          # ji -> (bounds_q, bounds_t)
+            # NOTE: self.inversions accumulates (the align loop clears it
+            # before each record batch and drains it after — patch-stage
+            # align() calls in between must not wipe the mains' records)
 
-        # The device passes run in a BACKGROUND THREAD: tier-1 segment
-        # chunks dispatch WHILE the main thread is still planning later
-        # blocks (the stream fills as pieces classify), the deeper-tier
-        # cascade and placed-middle tiers follow, and the host exact
-        # engine overlaps it all — the native WFA releases the GIL, so
-        # planning, host tail and device wall overlap instead of
-        # alternating.
-        import threading as _threading
+            # The device passes run in a BACKGROUND THREAD: tier-1 segment
+            # chunks dispatch WHILE the main thread is still planning later
+            # blocks (the stream fills as pieces classify), the deeper-tier
+            # cascade and placed-middle tiers follow, and the host exact
+            # engine overlaps it all — the native WFA releases the GIL, so
+            # planning, host tail and device wall overlap instead of
+            # alternating.
+            import threading as _threading
 
-        def score_ub(sq, st, ef):
-            if ef is not None:
-                return None          # free spans invalidate the bound
-            return (self.p.mismatch * min(len(sq), len(st))
-                    + self.p.gap_cost(abs(len(sq) - len(st))))
+            def score_ub(sq, st, ef):
+                if ef is not None:
+                    return None          # free spans invalidate the bound
+                return (self.p.mismatch * min(len(sq), len(st))
+                        + self.p.gap_cost(abs(len(sq) - len(st))))
 
-        stream = (self.solver.stream(certify=True)
-                  if hasattr(self.solver, "stream") else None)
-        got_m: list = []
-        unc_m: list = []
-        _dev_err: list = []
-        _mids_ready = _threading.Event()
+            stream = (self.solver.stream(certify=True)
+                      if hasattr(self.solver, "stream") else None)
+            got_m: list = []
+            unc_m: list = []
+            _dev_err: list = []
+            _mids_ready = _threading.Event()
 
-        def _solve_mids():
-            if placed_jobs:
-                mids = [(q, t) for _, _, q, t, _, _ in placed_jobs]
-                got_m[:] = self.solver.solve(
-                    mids,
-                    max_scores=[
-                        self.p.mismatch * min(len(q), len(t))
-                        + self.p.gap_cost(abs(len(q) - len(t)))
-                        for q, t in mids],
-                    uncertified=unc_m)
+            def _solve_mids():
+                if placed_jobs:
+                    mids = [(q, t) for _, _, q, t, _, _ in placed_jobs]
+                    got_m[:] = self.solver.solve(
+                        mids,
+                        max_scores=[
+                            self.p.mismatch * min(len(q), len(t))
+                            + self.p.gap_cost(abs(len(q) - len(t)))
+                            for q, t in mids],
+                        uncertified=unc_m)
 
-        def _device_phase():
-            try:
+            def _device_phase():
+                try:
+                    # the solver's spans on this thread are eng's children
+                    with perf.adopt(eng):
+                        if stream is not None:
+                            stream.run()
+                        else:
+                            unc[:] = [None] * len(seg_jobs)
+                            seg_stat[:] = [None] * len(seg_jobs)
+                            seg_ops[:] = self.solver.solve(
+                                [(sq, st, ef)
+                                 for _, _, sq, st, ef in seg_jobs],
+                                max_scores=[score_ub(sq, st, ef)
+                                            for _, _, sq, st, ef in seg_jobs],
+                                uncertified=unc, status=seg_stat)
+                        _mids_ready.wait()
+                        _solve_mids()
+                except BaseException as e:  # re-raised on join
+                    _dev_err.append(e)
+
+            def push_seg(ji, pi, sq, st, ef):
+                seg_jobs.append((ji, pi, sq, st, ef))
                 if stream is not None:
-                    stream.run()
-                else:
-                    unc[:] = [None] * len(seg_jobs)
-                    seg_stat[:] = [None] * len(seg_jobs)
-                    seg_ops[:] = self.solver.solve(
-                        [(sq, st, ef) for _, _, sq, st, ef in seg_jobs],
-                        max_scores=[score_ub(sq, st, ef)
-                                    for _, _, sq, st, ef in seg_jobs],
-                        uncertified=unc, status=seg_stat)
-                _mids_ready.wait()
-                _solve_mids()
-            except BaseException as e:  # re-raised on join
-                _dev_err.append(e)
+                    stream.add((sq, st, ef), score_ub(sq, st, ef))
 
-        def push_seg(ji, pi, sq, st, ef):
-            seg_jobs.append((ji, pi, sq, st, ef))
+            _dev_th = None
             if stream is not None:
-                stream.add((sq, st, ef), score_ub(sq, st, ef))
+                # start consuming before planning produces (stream mode)
+                _dev_th = _threading.Thread(target=_device_phase,
+                                            name="wfmash-device-phase")
+                _dev_th.start()
 
-        _dev_th = None
-        if stream is not None:
-            # start consuming before planning produces (stream mode)
-            _dev_th = _threading.Thread(target=_device_phase,
-                                        name="wfmash-device-phase")
-            _dev_th.start()
-
-        # phase 1: small blocks and explicit ends-free jobs (boundary
-        # patches) go to the device solver directly when they fit its
-        # envelope. With WFMASH_TPU_SEG_HOST_SMALL=1 the ends-free jobs
-        # route to one native host batch instead (_host_smalls_ok).
-        host_small = self._host_smalls_ok()
-        host_jobs: list = []          # (ji, pi, q, t, ef)
-        todo = []
-        for ji, (q, t, ef) in enumerate(jobs):
-            q, t = bytes(q), bytes(t)
-            if (ef is not None or len(q) < self.min_block
-                    or len(t) < self.min_block):
-                plans[ji] = None
-                whole.add(ji)
-                if q and t and ef is not None and host_small:
-                    host_jobs.append((ji, 0, q, t, ef))
-                elif q and t and self.solver.accepts(len(q), len(t), ef):
-                    push_seg(ji, 0, q, t, ef)
-                else:
-                    if not q or not t:
-                        perf.add("align.exact_empty_side", 1)
-                    elif ef is not None:
-                        perf.add("align.exact_ef_reject", 1)
-                        perf.add("align.exact_ef_reject_bp",
-                                 max(len(q), len(t)))
+            # phase 1: small blocks and explicit ends-free jobs (boundary
+            # patches) go to the device solver directly when they fit its
+            # envelope. With WFMASH_TPU_SEG_HOST_SMALL=1 the ends-free jobs
+            # route to one native host batch instead (_host_smalls_ok).
+            host_small = self._host_smalls_ok()
+            host_jobs: list = []          # (ji, pi, q, t, ef)
+            todo = []
+            for ji, (q, t, ef) in enumerate(jobs):
+                q, t = bytes(q), bytes(t)
+                if (ef is not None or len(q) < self.min_block
+                        or len(t) < self.min_block):
+                    plans[ji] = None
+                    whole.add(ji)
+                    if q and t and ef is not None and host_small:
+                        host_jobs.append((ji, 0, q, t, ef))
+                    elif q and t and self.solver.accepts(len(q), len(t), ef):
+                        push_seg(ji, 0, q, t, ef)
                     else:
-                        perf.add("align.exact_small_reject", 1)
-                    exact_jobs.append((ji, 0, q, t, ef))
+                        exact_jobs.append((ji, 0, q, t, ef))
+                        self.stats["exact_blocks"] += 1
+                else:
+                    todo.append((ji, q, t))
+            # phase 2: per-block anchor planning (native C++ host path),
+            # fused with piece classification so planned pieces stream to
+            # the device thread as they appear. Plans against the CHEAP
+            # tier's envelope (512/256): re-anchoring an oversize span into
+            # ~256 bp tier-1 segments beats solving it whole on the deep
+            # tier; only unanchorable spans should reach t3.
+            for (ji, q, t) in todo:
+                # NB: must not shadow the align_batch `bounds` parameter —
+                # run_host_small reads it after this loop
+                pb = _plan_bounds(q, t, self.seg_target, 512, 256)
+                if pb is None:
+                    plans[ji] = None
+                    exact_jobs.append((ji, 0, q, t, None))
                     self.stats["exact_blocks"] += 1
-            else:
-                todo.append((ji, q, t))
-        # phase 2: per-block anchor planning (native C++ host path),
-        # fused with piece classification so planned pieces stream to
-        # the device thread as they appear. Plans against the CHEAP
-        # tier's envelope (512/256): re-anchoring an oversize span into
-        # ~256 bp tier-1 segments beats solving it whole on the deep
-        # tier; only unanchorable spans should reach t3.
-        for (ji, q, t) in todo:
-            # NB: must not shadow the align_batch `bounds` parameter —
-            # run_host_small reads it after this loop
-            pb = _plan_bounds(q, t, self.seg_target, 512, 256)
-            if pb is None:
-                plans[ji] = None
-                exact_jobs.append((ji, 0, q, t, None))
-                self.stats["exact_blocks"] += 1
-                continue
-            bounds_q, bounds_t = pb
-            bounds_of[ji] = (bounds_q, bounds_t)
-            pieces = []
-            for pi in range(len(bounds_q) - 1):
-                sq = q[bounds_q[pi]:bounds_q[pi + 1]]
-                st = t[bounds_t[pi]:bounds_t[pi + 1]]
-                pieces.append(None)
-                if self.solver.accepts(len(sq), len(st)) or not sq or not st:
-                    push_seg(ji, pi, sq, st, None)
-                else:
-                    # a piece with a multi-hundred-bp length skew is a
-                    # structural gap: end-to-end WFA would pay O(skew)
-                    # score levels just to emit the gap. Free both ends
-                    # of the LONGER side instead — the shorter side
-                    # aligns locally and the remainder comes out as
-                    # leading/trailing gap runs (still consuming both
-                    # sequences fully, so stitching stays replay-exact)
-                    ef = None
-                    skew = len(sq) - len(st)
-                    if abs(skew) > 400:
-                        from .wfa_np import EndsFree
-
-                        if skew > 0:
-                            ef = EndsFree(query_begin=skew, query_end=skew)
-                        else:
-                            ef = EndsFree(target_begin=-skew,
-                                          target_end=-skew)
-                    if ef is not None and self.solver.accepts(
-                            len(sq), len(st), ef):
-                        push_seg(ji, pi, sq, st, ef)
-                    elif ef is not None:
-                        # too big for the device ends-free envelope: an
-                        # unbounded host ends-free WFA on a multi-kb
-                        # piece costs seconds (the free spans seed the
-                        # whole band). Place the SHORT side inside the
-                        # long one by k-mer diagonal voting, emit the
-                        # flanks as plain gap runs, and align the middle
-                        # end-to-end (device tiers) — near-optimal and
-                        # replay-exact (ledgered with the segmented
-                        # mode's anchor-pinning divergence).
-                        skew = len(sq) - len(st)
-                        off = (_place_short(st, sq) if skew > 0
-                               else _place_short(sq, st))
-                        if off is None:
-                            exact_jobs.append((ji, pi, sq, st, ef))
-                        elif skew > 0:
-                            placed_jobs.append(
-                                (ji, pi, sq[off:off + len(st)], st,
-                                 [(off, "I")] if off else [],
-                                 [(skew - off, "I")] if skew - off
-                                 else []))
-                        else:
-                            placed_jobs.append(
-                                (ji, pi, sq, st[off:off + len(sq)],
-                                 [(off, "D")] if off else [],
-                                 [(-skew - off, "D")] if -skew - off
-                                 else []))
+                    continue
+                bounds_q, bounds_t = pb
+                bounds_of[ji] = (bounds_q, bounds_t)
+                pieces = []
+                for pi in range(len(bounds_q) - 1):
+                    sq = q[bounds_q[pi]:bounds_q[pi + 1]]
+                    st = t[bounds_t[pi]:bounds_t[pi + 1]]
+                    pieces.append(None)
+                    if (self.solver.accepts(len(sq), len(st)) or not sq
+                            or not st):
+                        push_seg(ji, pi, sq, st, None)
                     else:
-                        exact_jobs.append((ji, pi, sq, st, ef))
-            plans[ji] = pieces
+                        # a piece with a multi-hundred-bp length skew is a
+                        # structural gap: end-to-end WFA would pay O(skew)
+                        # score levels just to emit the gap. Free both ends
+                        # of the LONGER side instead — the shorter side
+                        # aligns locally and the remainder comes out as
+                        # leading/trailing gap runs (still consuming both
+                        # sequences fully, so stitching stays replay-exact)
+                        ef = None
+                        skew = len(sq) - len(st)
+                        if abs(skew) > 400:
+                            from .wfa_np import EndsFree
 
-        # planning complete: every device-eligible piece of every block
-        # is in the stream (each with its trivial score upper bound —
-        # all-mismatch + length-difference gap — so garbage pieces stop
-        # sweeping at their bound instead of the tier smax); placed_jobs
-        # is final, so release the mids stage too
-        self.stats["segments"] += len(seg_jobs)
-        perf.add("align.plan_s", _time.monotonic() - _t0)
-        _t1 = _time.monotonic()
-        unc: list = []
-        seg_stat: list = []
-        seg_ops: list = []
-        if stream is not None:
-            stream.close()
-        _mids_ready.set()
-        if _dev_th is None:   # non-streaming solver: start the thread now
-            _dev_th = _threading.Thread(target=_device_phase,
-                                        name="wfmash-device-phase")
-            _dev_th.start()
+                            if skew > 0:
+                                ef = EndsFree(query_begin=skew, query_end=skew)
+                            else:
+                                ef = EndsFree(target_begin=-skew,
+                                              target_end=-skew)
+                        if ef is not None and self.solver.accepts(
+                                len(sq), len(st), ef):
+                            push_seg(ji, pi, sq, st, ef)
+                        elif ef is not None:
+                            # too big for the device ends-free envelope: an
+                            # unbounded host ends-free WFA on a multi-kb
+                            # piece costs seconds (the free spans seed the
+                            # whole band). Place the SHORT side inside the
+                            # long one by k-mer diagonal voting, emit the
+                            # flanks as plain gap runs, and align the middle
+                            # end-to-end (device tiers) — near-optimal and
+                            # replay-exact (ledgered with the segmented
+                            # mode's anchor-pinning divergence).
+                            skew = len(sq) - len(st)
+                            off = (_place_short(st, sq) if skew > 0
+                                   else _place_short(sq, st))
+                            if off is None:
+                                exact_jobs.append((ji, pi, sq, st, ef))
+                            elif skew > 0:
+                                placed_jobs.append(
+                                    (ji, pi, sq[off:off + len(st)], st,
+                                     [(off, "I")] if off else [],
+                                     [(skew - off, "I")] if skew - off
+                                     else []))
+                            else:
+                                placed_jobs.append(
+                                    (ji, pi, sq, st[off:off + len(sq)],
+                                     [(off, "D")] if off else [],
+                                     [(-skew - off, "D")] if -skew - off
+                                     else []))
+                        else:
+                            exact_jobs.append((ji, pi, sq, st, ef))
+                plans[ji] = pieces
 
-        # exact-engine passes. Escalations already failed the segment
-        # kernel, so the exact engine must not re-try them there
-        # (allow_seg=False); whole-block fallbacks and oversize pieces
-        # may still batch their recursion leaves through it.
-        def run_exact(batch, allow_seg):
-            if not batch:
-                return
-            try:
-                got = self.exact.align_batch(
-                    [(q, t, ef) for _, _, q, t, ef in batch],
-                    allow_seg=allow_seg)
-            except TypeError:      # engines without the keyword
-                got = self.exact.align_batch(
-                    [(q, t, ef) for _, _, q, t, ef in batch])
-            for (ji, pi, _, _, _), ops in zip(batch, got):
-                if plans[ji] is None:
-                    plans[ji] = [ops]          # whole-block result
-                else:
-                    plans[ji][pi] = ops
+            # planning complete: every device-eligible piece of every block
+            # is in the stream (each with its trivial score upper bound —
+            # all-mismatch + length-difference gap — so garbage pieces stop
+            # sweeping at their bound instead of the tier smax); placed_jobs
+            # is final, so release the mids stage too
+            self.stats["segments"] += len(seg_jobs)
+        with perf.span("align.seg_solve"):
+            unc: list = []
+            seg_stat: list = []
+            seg_ops: list = []
+            if stream is not None:
+                stream.close()
+            _mids_ready.set()
+            if _dev_th is None:   # non-streaming solver: start the thread now
+                _dev_th = _threading.Thread(target=_device_phase,
+                                            name="wfmash-device-phase")
+                _dev_th.start()
 
-        def run_host_small():
-            """One native call for the routed ends-free jobs; per-job
-            score bounds (the eroded candidate a patch replaces) prune
-            the native wavefronts — a valid bound can never reject, so
-            results are unchanged (see wfa.cpp known-bound pruning)."""
-            if not host_jobs:
-                return
-            from ..native import WfaMemoryBudget, wfa_align_batch_native
+            # exact-engine passes. Escalations already failed the segment
+            # kernel, so the exact engine must not re-try them there
+            # (allow_seg=False); whole-block fallbacks and oversize pieces
+            # may still batch their recursion leaves through it.
+            def run_exact(batch, allow_seg):
+                if not batch:
+                    return
+                try:
+                    got = self.exact.align_batch(
+                        [(q, t, ef) for _, _, q, t, ef in batch],
+                        allow_seg=allow_seg)
+                except TypeError:      # engines without the keyword
+                    got = self.exact.align_batch(
+                        [(q, t, ef) for _, _, q, t, ef in batch])
+                for (ji, pi, _, _, _), ops in zip(batch, got):
+                    if plans[ji] is None:
+                        plans[ji] = [ops]          # whole-block result
+                    else:
+                        plans[ji][pi] = ops
 
-            pieces = [(q, t) for _, _, q, t, _ in host_jobs]
-            spans = [(ef.target_begin, ef.target_end,
-                      ef.query_begin, ef.query_end)
-                     for *_, ef in host_jobs]
-            caps = None
-            if bounds is not None:
-                caps = [bounds[ji] if ji < len(bounds) else None
-                        for ji, *_ in host_jobs]
-                if all(c is None for c in caps):
-                    caps = None
-                else:
-                    caps = [-1 if c is None else c for c in caps]
-            solved = None
-            try:
-                solved = wfa_align_batch_native(
-                    pieces, self.p, max_scores=caps, ends_free=spans)
-            except WfaMemoryBudget:   # pragma: no cover - giant patch
+            def run_host_small():
+                """One native call for the routed ends-free jobs; per-job
+                score bounds (the eroded candidate a patch replaces) prune
+                the native wavefronts — a valid bound can never reject, so
+                results are unchanged (see wfa.cpp known-bound pruning)."""
+                if not host_jobs:
+                    return
+                from ..native import WfaMemoryBudget, wfa_align_batch_native
+
+                pieces = [(q, t) for _, _, q, t, _ in host_jobs]
+                spans = [(ef.target_begin, ef.target_end,
+                          ef.query_begin, ef.query_end)
+                         for *_, ef in host_jobs]
+                caps = None
+                if bounds is not None:
+                    caps = [bounds[ji] if ji < len(bounds) else None
+                            for ji, *_ in host_jobs]
+                    if all(c is None for c in caps):
+                        caps = None
+                    else:
+                        caps = [-1 if c is None else c for c in caps]
                 solved = None
-            if solved is None:
-                run_exact(host_jobs, True)
-                return
-            leftovers = []
-            for (ji, pi, q, t, ef), (_, ops) in zip(host_jobs, solved):
-                if ops is None:       # pragma: no cover - native refusal
-                    leftovers.append((ji, pi, q, t, ef))
-                elif plans[ji] is None:
-                    plans[ji] = [ops]
-                else:
-                    plans[ji][pi] = ops
-            run_exact(leftovers, True)
+                try:
+                    solved = wfa_align_batch_native(
+                        pieces, self.p, max_scores=caps, ends_free=spans)
+                except WfaMemoryBudget:   # pragma: no cover - giant patch
+                    solved = None
+                if solved is None:
+                    run_exact(host_jobs, True)
+                    return
+                leftovers = []
+                for (ji, pi, q, t, ef), (_, ops) in zip(host_jobs, solved):
+                    if ops is None:       # pragma: no cover - native refusal
+                        leftovers.append((ji, pi, q, t, ef))
+                    elif plans[ji] is None:
+                        plans[ji] = [ops]
+                    else:
+                        plans[ji][pi] = ops
+                run_exact(leftovers, True)
 
-        # host exact pass, concurrent with the device thread
-        _t2 = _time.monotonic()
-        try:
-            run_host_small()
-            run_exact(exact_jobs, True)
-        finally:
-            _exact_s = _time.monotonic() - _t2
-            _dev_th.join()
-        if _dev_err:
-            raise _dev_err[0]
-        if stream is not None:
-            seg_ops[:] = stream.res
-            seg_stat[:] = stream.st
-            unc[:] = stream.unc
-        perf.add("align.seg_solve_s", _time.monotonic() - _t1)
+            # host exact pass, concurrent with the device thread
+            try:
+                with perf.span("align.exact"):
+                    run_host_small()
+                    run_exact(exact_jobs, True)
+            finally:
+                # what the device thread has left once the host is done
+                with perf.span("align.device_wait"):
+                    _dev_th.join()
+            if _dev_err:
+                raise _dev_err[0]
+            if stream is not None:
+                seg_ops[:] = stream.res
+                seg_stat[:] = stream.st
+                unc[:] = stream.unc
         self._escal_census = {}
         for k, ops in enumerate(seg_ops):
             if ops is None and (unc[k] is None or not self.banded_pieces):
@@ -932,111 +934,112 @@ class SegmentedEngine:
                     wrapped
                 plans[ji][pi] = wrapped
 
-        _t2 = _time.monotonic()
-        rest = escal_jobs
-        if host_small and escal_jobs:
-            # tier failures are end-to-end pieces with a trivial valid
-            # bound (all-mismatch + skew gap): one capped native call
-            # beats per-piece exact sweeps through a high-latency link
-            from ..native import WfaMemoryBudget, wfa_align_batch_native
+        with perf.span("align.exact"):
+            rest = escal_jobs
+            if host_small and escal_jobs:
+                # tier failures are end-to-end pieces with a trivial valid
+                # bound (all-mismatch + skew gap): one capped native call
+                # beats per-piece exact sweeps through a high-latency link
+                from ..native import WfaMemoryBudget, wfa_align_batch_native
 
-            # routing bit-identity: pieces above the
-            # exact engine's HOST_LEN go through run_exact in BOTH
-            # SEG_HOST_SMALL configs — a native end-to-end solve here
-            # could differ byte-wise from the exact engine's crossing-
-            # payload split recursion on the same (score-equal) piece.
-            hl = int(getattr(self.exact, "HOST_LEN", 1900))
+                # routing bit-identity: pieces above the
+                # exact engine's HOST_LEN go through run_exact in BOTH
+                # SEG_HOST_SMALL configs — a native end-to-end solve here
+                # could differ byte-wise from the exact engine's crossing-
+                # payload split recursion on the same (score-equal) piece.
+                hl = int(getattr(self.exact, "HOST_LEN", 1900))
 
-            def _nat_ok(e):
-                return e[4] is None and max(len(e[2]), len(e[3])) <= hl
+                def _nat_ok(e):
+                    return e[4] is None and max(len(e[2]), len(e[3])) <= hl
 
-            nat = [e for e in escal_jobs if _nat_ok(e)]
-            rest = [e for e in escal_jobs if not _nat_ok(e)]
-            if nat:
-                solved = None
-                try:
-                    solved = wfa_align_batch_native(
-                        [(sq, st) for _, _, sq, st, _ in nat], self.p,
-                        max_scores=[score_ub(sq, st, None)
-                                    for _, _, sq, st, _ in nat])
-                except WfaMemoryBudget:   # pragma: no cover - giant piece
+                nat = [e for e in escal_jobs if _nat_ok(e)]
+                rest = [e for e in escal_jobs if not _nat_ok(e)]
+                if nat:
                     solved = None
-                if solved is None:
-                    rest = escal_jobs
-                else:
-                    for (ji, pi, sq, st, ef), (_, ops) in zip(nat, solved):
-                        if ops is None:   # pragma: no cover
-                            rest.append((ji, pi, sq, st, ef))
-                        elif plans[ji] is None:
-                            plans[ji] = [ops]
-                        else:
-                            plans[ji][pi] = ops
-        run_exact(rest, False)
-        perf.add("align.exact_s",
-                 _exact_s + (_time.monotonic() - _t2))
-        _t3 = _time.monotonic()
-        # patch-region inversion try (wflign_patch.cpp:405-538): every
-        # divergent piece — escalated segments and oversize inter-anchor
-        # gaps — gets a reverse-complement attempt with a 0.9x score
-        # budget; completions are recorded for extra iv:Z:true PAF rows
-        if self.detect_inversions:
-            # candidate pieces for the rev-comp try: anything DIVERGENT —
-            # forward score >= 25% of a per-base mismatch bill (an
-            # inverted region scores ~75% mismatches forward). Score-
-            # based, not routing-based: the deeper tiers solve many
-            # divergent pieces forward on device, so "escalated" alone
-            # does not identify them.
-            from .wfa_np import score_cigar as _sc
+                    try:
+                        solved = wfa_align_batch_native(
+                            [(sq, st) for _, _, sq, st, _ in nat], self.p,
+                            max_scores=[score_ub(sq, st, None)
+                                        for _, _, sq, st, _ in nat])
+                    except WfaMemoryBudget:   # pragma: no cover - giant piece
+                        solved = None
+                    if solved is None:
+                        rest = escal_jobs
+                    else:
+                        for (ji, pi, sq, st, ef), (_, ops) in zip(nat, solved):
+                            if ops is None:   # pragma: no cover
+                                rest.append((ji, pi, sq, st, ef))
+                            elif plans[ji] is None:
+                                plans[ji] = [ops]
+                            else:
+                                plans[ji][pi] = ops
+            run_exact(rest, False)
+        with perf.span("align.inversion"):
+            # patch-region inversion try (wflign_patch.cpp:405-538): every
+            # divergent piece — escalated segments and oversize inter-anchor
+            # gaps — gets a reverse-complement attempt with a 0.9x score
+            # budget; completions are recorded for extra iv:Z:true PAF rows
+            if self.detect_inversions:
+                # candidate pieces for the rev-comp try: anything DIVERGENT —
+                # forward score >= 25% of a per-base mismatch bill (an
+                # inverted region scores ~75% mismatches forward). Score-
+                # based, not routing-based: the deeper tiers solve many
+                # divergent pieces forward on device, so "escalated" alone
+                # does not identify them.
+                from .wfa_np import score_cigar as _sc
 
-            div_cands = list(escal_jobs)
-            seen = {(e[0], e[1]) for e in escal_jobs}
-            for (ji, pi, sq, st, ef) in (seg_jobs + exact_jobs):
-                if (ji, pi) in seen or ji not in bounds_of or ef is not None:
-                    continue
+                div_cands = list(escal_jobs)
+                seen = {(e[0], e[1]) for e in escal_jobs}
+                for (ji, pi, sq, st, ef) in (seg_jobs + exact_jobs):
+                    if ((ji, pi) in seen or ji not in bounds_of
+                            or ef is not None):
+                        continue
+                    pieces = plans[ji]
+                    ops = pieces[pi] if pieces is not None else None
+                    if ops is None:
+                        continue
+                    # candidate bar: forward score >= a quarter of the
+                    # all-mismatch bill. An inverted region's cheapest
+                    # forward treatment is skipping it with two gap runs
+                    # (~2*gap_cost(len) ~ 2 per base with e2=1), so the bar
+                    # must sit below that, not near the mismatch bill.
+                    bill = self.p.mismatch * min(len(sq), len(st))
+                    if 4 * _sc(ops, self.p) >= bill:
+                        div_cands.append((ji, pi, sq, st, ef))
+                self._detect_inversions(
+                    plans, bounds_of,
+                    [e for e in div_cands if e[0] in bounds_of])
+        with perf.span("align.assemble"):
+            if n >= 16:
+                import sys
+
+                print(f"[wfmash::align] segmented batch: {n} blocks -> "
+                      f"{len(seg_jobs)} segments, {len(escal_jobs)} "
+                      f"escalated, "
+                      f"{len(exact_jobs)} exact-path jobs, "
+                      f"{self.stats['banded']} banded; escal census: "
+                      f"{sorted(self._escal_census.items())}", file=sys.stderr)
+
+            results = []
+            for ji in range(n):
                 pieces = plans[ji]
-                ops = pieces[pi] if pieces is not None else None
-                if ops is None:
+                if pieces is None or any(p is None for p in pieces):
+                    import sys as _sys
+
+                    holes = ([] if pieces is None else
+                             [pi for pi, p in enumerate(pieces) if p is None])
+                    print(f"[wfmash::align] WARNING: block {ji} "
+                          f"(q={len(jobs[ji][0])} t={len(jobs[ji][1])}) "
+                          "unresolved: plan="
+                          f"{'none' if pieces is None else len(pieces)} "
+                          f"holes={holes[:8]}", file=_sys.stderr)
+                    results.append(None)
                     continue
-                # candidate bar: forward score >= a quarter of the
-                # all-mismatch bill. An inverted region's cheapest
-                # forward treatment is skipping it with two gap runs
-                # (~2*gap_cost(len) ~ 2 per base with e2=1), so the bar
-                # must sit below that, not near the mismatch bill.
-                bill = self.p.mismatch * min(len(sq), len(st))
-                if 4 * _sc(ops, self.p) >= bill:
-                    div_cands.append((ji, pi, sq, st, ef))
-            self._detect_inversions(
-                plans, bounds_of,
-                [e for e in div_cands if e[0] in bounds_of])
-        perf.add("align.inversion_s", _time.monotonic() - _t3)
-        if n >= 16:
-            import sys
-
-            print(f"[wfmash::align] segmented batch: {n} blocks -> "
-                  f"{len(seg_jobs)} segments, {len(escal_jobs)} escalated, "
-                  f"{len(exact_jobs)} exact-path jobs, "
-                  f"{self.stats['banded']} banded; escal census: "
-                  f"{sorted(self._escal_census.items())}", file=sys.stderr)
-
-        results = []
-        for ji in range(n):
-            pieces = plans[ji]
-            if pieces is None or any(p is None for p in pieces):
-                import sys as _sys
-
-                holes = ([] if pieces is None else
-                         [pi for pi, p in enumerate(pieces) if p is None])
-                print(f"[wfmash::align] WARNING: block {ji} "
-                      f"(q={len(jobs[ji][0])} t={len(jobs[ji][1])}) "
-                      f"unresolved: plan={'none' if pieces is None else len(pieces)} "
-                      f"holes={holes[:8]}", file=_sys.stderr)
-                results.append(None)
-                continue
-            ops: list = []
-            for p in pieces:
-                ops = merge_adjacent(ops, p) if ops else list(p)
-            results.append(ops)
-        return results
+                ops: list = []
+                for p in pieces:
+                    ops = merge_adjacent(ops, p) if ops else list(p)
+                results.append(ops)
+            return results
 
     def _detect_inversions(self, plans, bounds_of, candidates):
         """Reverse-complement try on divergent pieces (reference:
@@ -1058,9 +1061,6 @@ class SegmentedEngine:
             cands.append((ji, pi, sq, st))
         if not cands:
             return
-        from ..utils import perf
-
-        perf.add("align.inv_candidates", len(cands))
         rev_jobs = [(bytes(reverse_complement(bytearray(sq))), st)
                     for _, _, sq, st in cands]
         # certify=False: a banded rev-comp CIGAR within budget is a real

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -285,41 +284,36 @@ class ExactWfaEngine:
             if not requeue:
                 pending = keep
                 break
-            perf.add("align.resweep_jobs", len(requeue))
-            perf.add("align.resweep_kept", len(keep))
             deferred = []
             drain_queue(requeue)
-            perf.add("align.resweep_leaves", len(deferred))
             pending = keep + deferred
 
         rest_entries = pending
-        t0 = time.monotonic()
-        leaf_log = os.environ.get("WFMASH_TPU_LEAF_LOG")
-        if leaf_log and rest_entries:
-            with open(leaf_log, "a") as fh:
-                for (_i, _o, q, t, ef) in rest_entries:
-                    fh.write(f"{len(q)}\t{len(t)}\t{ef}\n")
-        done_pool = False
-        if self.threads > 1 and len(rest_entries) >= 8:
-            from ..utils.hostpool import get_pool
+        with perf.span("align.host_leaf"):
+            leaf_log = os.environ.get("WFMASH_TPU_LEAF_LOG")
+            if leaf_log and rest_entries:
+                with open(leaf_log, "a") as fh:
+                    for (_i, _o, q, t, ef) in rest_entries:
+                        fh.write(f"{len(q)}\t{len(t)}\t{ef}\n")
+            done_pool = False
+            if self.threads > 1 and len(rest_entries) >= 8:
+                from ..utils.hostpool import get_pool
 
-            pool = get_pool(self.threads)
-            if pool is not None:
-                got = pool.starmap(
-                    _host_solve,
-                    [(q, t, ef, self.p)
-                     for (_, _, q, t, ef) in rest_entries],
-                    chunksize=max(1, len(rest_entries) //
-                                  (4 * self.threads)))
-                for (i, order, _, _, _), ops in zip(rest_entries, got):
+                pool = get_pool(self.threads)
+                if pool is not None:
+                    got = pool.starmap(
+                        _host_solve,
+                        [(q, t, ef, self.p)
+                         for (_, _, q, t, ef) in rest_entries],
+                        chunksize=max(1, len(rest_entries) //
+                                      (4 * self.threads)))
+                    for (i, order, _, _, _), ops in zip(rest_entries, got):
+                        results[i][order] = ops
+                    done_pool = True
+            if not done_pool:
+                for (i, order, q, t, ef) in rest_entries:
+                    _, ops = wfa_align(q, t, self.p, ef)
                     results[i][order] = ops
-                done_pool = True
-        if not done_pool:
-            for (i, order, q, t, ef) in rest_entries:
-                _, ops = wfa_align(q, t, self.p, ef)
-                results[i][order] = ops
-        perf.add("align.host_leaf_s", time.monotonic() - t0)
-        perf.add("align.host_leaves", len(rest_entries))
 
         # synthetic sub-jobs assemble back into their parent order slot
         for sid, (pi, porder) in synth.items():

@@ -39,7 +39,6 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-import time
 
 import numpy as np
 import torch
@@ -620,15 +619,13 @@ class SegmentSolver:
         # size-sorted chunks keep the launch's problems of similar depth
         todo.sort(key=lambda i: max(len(jobs[i][0]), len(jobs[i][1])))
         unc: list = [None] * len(jobs)
-        t0 = time.monotonic()
-        disps = []
-        for c0 in range(0, len(todo), self.max_call):
-            chunk = todo[c0:c0 + self.max_call]
-            disps.append(self._dispatch_chunk(chunk, jobs, max_scores))
-        for disp in disps:
-            self._collect_chunk(disp, results, st, certify, unc)
-        if disps:
-            perf.add("align.device_s", time.monotonic() - t0)
+        if todo:
+            with perf.span("align.device"):
+                disps = [self._dispatch_chunk(todo[c0:c0 + self.max_call],
+                                              jobs, max_scores)
+                         for c0 in range(0, len(todo), self.max_call)]
+                for disp in disps:
+                    self._collect_chunk(disp, results, st, certify, unc)
             perf.add("align.device_calls", len(disps))
         if status is not None:
             status[:] = st
@@ -690,23 +687,32 @@ class SegmentSolver:
         Returns the collect state: device outputs + certificate metadata."""
         perf.add(f"align.tier_jobs.{tier_name(self.K, self.smax)}",
                  len(idxs))
-        buf, meta = self.pack_chunk(idxs, jobs, max_scores)
+        with perf.span("align.tier.pack"):
+            buf, meta = self.pack_chunk(idxs, jobs, max_scores)
         if buf is None:
             return meta
         kw = dict(penalties=self.p, K=self.K, smax=self.smax, maxr=self.maxr)
-        if self.mesh is None:
-            meta["runs_full"], meta["out16"] = run_seg(
-                torch.from_numpy(buf).to(self.device), **kw)
-        else:
-            devices = self.mesh.axis_devices(self.mesh.axis_names[0])
-            meta["runs_full"], meta["out16"] = _run_seg_sharded(
-                buf, len(idxs), devices, **kw)
+        with perf.span("align.tier.launch"):
+            if self.mesh is None:
+                meta["runs_full"], meta["out16"] = run_seg(
+                    torch.from_numpy(buf).to(self.device), **kw)
+            else:
+                devices = self.mesh.axis_devices(self.mesh.axis_names[0])
+                meta["runs_full"], meta["out16"] = _run_seg_sharded(
+                    buf, len(idxs), devices, **kw)
         return meta
 
     def _collect_chunk(self, disp, results, st, certify, unc):
         idxs = disp["idxs"]
         if disp.get("give_up"):
             return                      # statuses stay "envelope"
+        with perf.span("align.tier.collect"):
+            self._decode_chunk(disp, results, st, certify, unc)
+
+    def _decode_chunk(self, disp, results, st, certify, unc):
+        """The chunk's outputs brought to the host (the readback waits for
+        the kernel) and turned into each job's CIGAR and status."""
+        idxs = disp["idxs"]
         maxr = self.maxr
         cap = min(maxr, RUNS_CAP)
         out16 = _host(disp["out16"])
@@ -714,9 +720,6 @@ class SegmentSolver:
         runs_c = out16[:, NTERM:]
         cert_b, cert_always = disp["cert_b"], disp["cert_always"]
         nj_rows = len(idxs)
-        # measured swept cells: per problem, levels x K lanes x 5 states
-        perf.add("align.device_cells",
-                 int(term[:nj_rows, 8].astype(np.int64).sum()) * self.K * 5)
         # per job row of the last chunk collected, its swept levels (the
         # dry run's per-device balance reads it)
         self.last_row_levels = term[:nj_rows, 8].astype(np.int64)
@@ -918,7 +921,9 @@ class _StreamSolve:
         depth = max(1, int(os.environ.get("WFMASH_TPU_SEG_INFLIGHT", "3")))
         inflight: list = []
         st_str: dict = {}   # raw string statuses from _collect_chunk
-        t_start = None
+        # align.device: from the first launch to the last collect (its
+        # self time is the wait for planned work between them)
+        device_span = None
 
         def finish_one():
             disp = inflight.pop(0)
@@ -946,8 +951,8 @@ class _StreamSolve:
             drained = closed and taken == len(self.jobs)
             while len(elig) >= CH or (drained and elig):
                 chunk, elig = elig[:CH], elig[CH:]
-                if t_start is None:
-                    t_start = time.monotonic()
+                if device_span is None:
+                    device_span = perf.span("align.device").__enter__()
                 inflight.append(t1._dispatch_chunk(chunk, self.jobs,
                                                    self.max_scores))
                 perf.add("align.device_calls", 1)
@@ -957,8 +962,8 @@ class _StreamSolve:
                 break
         while inflight:
             finish_one()
-        if t_start is not None:
-            perf.add("align.device_s", time.monotonic() - t_start)
+        if device_span is not None:
+            device_span.__exit__(None, None, None)
         # cascade the remainder through the deeper tiers (pooled)
         pending = [k for k in range(len(self.jobs))
                    if self.res[k] is None and k not in self.refuted]

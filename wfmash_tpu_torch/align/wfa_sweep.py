@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import time
 
 import numpy as np
 import torch
@@ -670,22 +669,20 @@ class ExactSweeps:
         par[:, 3] = mid
         par[:, 4] = done0
         dev = self.device
-        t0 = time.monotonic()
-        term = run_sweep(
-            torch.from_numpy(query).to(dev), torch.from_numpy(target).to(dev),
-            torch.from_numpy(par).to(dev),
-            torch.from_numpy(np.ascontiguousarray(seed_off, np.int32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(seed_anc, np.uint32)
-                             .view(np.int32)).to(dev),
-            penalties=self.p, K=K, max_s=int(max_s)).cpu().numpy()
-        lanes = int(term_lanes(term).sum())
+        # align.sweep: host wall from upload to readback (the readback
+        # waits for the kernel)
+        with perf.span("align.sweep"):
+            term = run_sweep(
+                torch.from_numpy(query).to(dev),
+                torch.from_numpy(target).to(dev),
+                torch.from_numpy(par).to(dev),
+                torch.from_numpy(np.ascontiguousarray(seed_off, np.int32))
+                .to(dev),
+                torch.from_numpy(np.ascontiguousarray(seed_anc, np.uint32)
+                                 .view(np.int32)).to(dev),
+                penalties=self.p, K=K, max_s=int(max_s)).cpu().numpy()
         self.levels += int(term[:, 4].astype(np.int64).sum())
-        self.lanes += lanes
-        # host wall from upload to readback (the readback waits for the
-        # kernel), and the swept cells: wavefront lanes x 5 states
-        perf.add("align.sweep_s", time.monotonic() - t0)
-        perf.add("align.sweep_calls", 1)
-        perf.add("align.sweep_cells", lanes * 5)
+        self.lanes += int(term_lanes(term).sum())
         fin = term[:, 0] != 0
         finished = done0 | fin
         clipped = term[:, 3] != 0

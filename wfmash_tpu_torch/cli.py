@@ -16,6 +16,7 @@ import sys
 from . import WFMASH_COMPAT_VERSION, __version__
 from .params import AlignParams, FILTER_MAP, FILTER_NONE, FILTER_ONETOONE, MapParams, fixed
 from .device import resolve
+from .utils import perf
 from .utils.units import handy_parameter
 
 U32_MAX = 0xFFFFFFFF
@@ -340,7 +341,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     try:
-        return _main(argv)
+        with perf.span("cli.main"):
+            return _main(argv)
     except NotImplementedError as e:
         print(f"[wfmash] ERROR: {e}", file=sys.stderr)
         return 1
@@ -354,6 +356,20 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
+    finally:
+        if os.environ.get("WFMASH_TPU_PERF"):
+            _dump_perf()
+
+
+def _dump_perf() -> None:
+    """WFMASH_TPU_PERF=1: every counter (span totals and self times
+    among them) and the launches of each kernel module loaded."""
+    perf.dump()
+    for kernel, module in (("seg_wfa", "wfa_seg"), ("sweep_wfa", "wfa_sweep")):
+        mod = sys.modules.get(f"{__package__}.align.{module}")
+        if mod is not None:
+            print(f"[wfmash::perf] {kernel} kernel launches = {mod.LAUNCHES}",
+                  file=sys.stderr)
 
 
 def apply_auto_identity(mp) -> None:
@@ -364,7 +380,8 @@ def apply_auto_identity(mp) -> None:
         return
     from .map.ani import estimate_identity_for_groups
 
-    ani = estimate_identity_for_groups(mp)
+    with perf.span("map.identity"):
+        ani = estimate_identity_for_groups(mp)
     if ani is not None:
         mp.percentage_identity = ani
         if not mp.sketch_size_manually_set:
@@ -393,11 +410,6 @@ def _main(argv=None) -> int:
 
     if approx_mapping:
         run_mapping(mp, sys.stdout, device=device)
-        if os.environ.get("WFMASH_TPU_PERF"):
-            from .utils import perf
-
-            for k, v in sorted(perf.snapshot().items()):
-                print(f"[wfmash::perf] {k} = {v:.3f}", file=sys.stderr)
         return 0
 
     # full map + align pipeline; the handoff PAF goes through the temp
@@ -415,13 +427,7 @@ def _main(argv=None) -> int:
             print(f"[wfmash] keeping temp mapping PAF: {paf_path}",
                   file=sys.stderr)
 
-    from .align import wfa_seg, wfa_sweep
     from .align.engine import run_alignment
 
     run_alignment(ap, sys.stdout, device)
-    if os.environ.get("WFMASH_TPU_PERF"):
-        print(f"[wfmash::perf] seg_wfa kernel launches = {wfa_seg.LAUNCHES}",
-              file=sys.stderr)
-        print(f"[wfmash::perf] sweep_wfa kernel launches = "
-              f"{wfa_sweep.LAUNCHES}", file=sys.stderr)
     return 0

@@ -32,6 +32,7 @@ import numpy as np
 
 from ..params import MapParams
 from ..sketch.winnow import RECORD_DTYPE, winnow_minmers
+from ..utils import perf
 
 SIDE_OPEN = np.int8(1)
 SIDE_CLOSE = np.int8(-1)
@@ -109,42 +110,52 @@ def build_index(
     sequences,  # iterable of (seq_id, seq_bytes)
     log=lambda msg: print(msg, file=sys.stderr),
 ) -> MinmerIndex:
-    """Build the minmer index for one target subset."""
+    """Build the minmer index for one target subset (spans
+    map.index.winnow, then map.index.table for the frequency filter and
+    both lookup structures)."""
     from ..native import winnow_minmers_native
 
     all_records = []
     skipped = 0
     total_bp = 0
-    for seq_id, seq in sequences:
-        if len(seq) < params.window_length:
-            skipped += 1
-            continue
-        total_bp += len(seq)
-        if params.use_streaming_minhash and params.sketch_size > 0:
-            # experimental whole-sequence MinHash ref sketch
-            # (winSketch.hpp:472-483)
-            from ..sketch.winnow import sketch_sequence_streaming
+    with perf.span("map.index.winnow"):
+        for seq_id, seq in sequences:
+            if len(seq) < params.window_length:
+                skipped += 1
+                continue
+            total_bp += len(seq)
+            if params.use_streaming_minhash and params.sketch_size > 0:
+                # experimental whole-sequence MinHash ref sketch
+                # (winSketch.hpp:472-483)
+                from ..sketch.winnow import sketch_sequence_streaming
 
-            recs = sketch_sequence_streaming(
-                seq, params.kmer_size, params.sketch_size,
-                params.window_length, seq_id)
-        else:
-            recs = winnow_minmers_native(
-                seq, params.kmer_size, params.window_length,
-                params.sketch_size, seq_id=seq_id,
-            )
-            if recs is None:  # native lib unavailable
-                recs = winnow_minmers(
+                recs = sketch_sequence_streaming(
+                    seq, params.kmer_size, params.sketch_size,
+                    params.window_length, seq_id)
+            else:
+                recs = winnow_minmers_native(
                     seq, params.kmer_size, params.window_length,
                     params.sketch_size, seq_id=seq_id,
                 )
-        all_records.append(recs)
+                if recs is None:  # native lib unavailable
+                    recs = winnow_minmers(
+                        seq, params.kmer_size, params.window_length,
+                        params.sketch_size, seq_id=seq_id,
+                    )
+            all_records.append(recs)
 
     if not all_records:
         raise ValueError(
             "reference sketch is empty — sequences shorter than the window "
             "size are not indexed"
         )
+    with perf.span("map.index.table"):
+        return _table(params, all_records, skipped, total_bp, log)
+
+
+def _table(params, all_records, skipped, total_bp, log) -> MinmerIndex:
+    """The frequency filter, the L2 record list and the L1 posting
+    table from the subset's winnowed records."""
     records = np.concatenate(all_records)
     total_windows = len(records)
 

@@ -415,18 +415,16 @@ class DeviceL1:
             stage1=bool(p.stage1_topANI_filter))
 
     def _candidates_chunk(self, frags):
-        import time
-
         from ..utils import perf
 
         if not frags:
             return []
         packed = self._pack(frags)
-        t0 = time.monotonic()
-        cand, ncand, overflow = self._run(*packed)
-        ncand = ncand.cpu().tolist()
-        overflow = overflow.cpu().tolist()
-        cand = cand[:, :max(ncand)].cpu().tolist()
-        perf.add("map.device_s", time.monotonic() - t0)
+        with perf.span("map.l1.device") as run:
+            cand, ncand, overflow = self._run(*packed)
+            ncand = ncand.cpu().tolist()
+            overflow = overflow.cpu().tolist()
+            cand = cand[:, :max(ncand)].cpu().tolist()
+        perf.add("map.device_s", run.seconds)
         perf.add("map.device_calls", 1)
         return answer_rows(frags, cand, ncand, overflow, self.params)

@@ -235,16 +235,14 @@ class DeviceL2:
                                S=self.S_CAP)
 
     def _walk_chunk(self, rows, prep, k0, k1, out):
-        import time
-
         from ..utils import perf
 
         packed = self._pack(rows, prep, k0, k1)
-        t0 = time.monotonic()
-        shared, votes = self._run(packed)
-        shared = shared.cpu().numpy()
-        votes = votes.cpu().numpy()
-        perf.add("map.device_s", time.monotonic() - t0)
+        with perf.span("map.l2.device") as run:
+            shared, votes = self._run(packed)
+            shared = shared.cpu().numpy()
+            votes = votes.cpu().numpy()
+        perf.add("map.device_s", run.seconds)
         perf.add("map.l2_device_calls", 1)
         ids = prep["rows"][k0:k1]
         seq_ids = [rows[ri][2].seq_id for ri in ids.tolist()]

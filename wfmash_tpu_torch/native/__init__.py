@@ -60,10 +60,13 @@ def _gpp_flags() -> list[str]:
 def _gpp_build(src, lib) -> None:
     """Compile src into lib through a per-process temporary file, so a
     concurrent process never loads a half-written library."""
+    from ..utils import perf
+
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *_gpp_flags(), str(src), "-o", str(tmp)],
-                       check=True, capture_output=True)
+        with perf.span("build.kernel"):
+            subprocess.run(["g++", *_gpp_flags(), str(src), "-o", str(tmp)],
+                           check=True, capture_output=True)
         os.replace(tmp, lib)
     finally:
         tmp.unlink(missing_ok=True)

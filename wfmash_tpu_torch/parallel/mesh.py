@@ -38,7 +38,6 @@ The axes:
 
 from __future__ import annotations
 
-import time
 
 import numpy as np
 import torch
@@ -184,45 +183,46 @@ class ShardedDeviceL1:
             return []
         p = self.params
         qh, q_nh, meta = pack_fragments(frags)
-        t0 = time.monotonic()
-        slots = _ranges(len(frags), self.n_data)
-        joined = {}
-        for d, a, b in slots:           # every join before any merge
-            for s in range(self.n_shard):
-                dev = self.mesh.devices[s, d]
-                uh, offs, ep_pos, ep_seq, ep_side = self._index[s, dev]
+        with perf.span("map.l1.device") as run:
+            slots = _ranges(len(frags), self.n_data)
+            joined = {}
+            for d, a, b in slots:           # every join before any merge
+                for s in range(self.n_shard):
+                    dev = self.mesh.devices[s, d]
+                    uh, offs, ep_pos, ep_seq, ep_side = self._index[s, dev]
+                    mt = torch.from_numpy(meta[a:b]).to(dev)
+                    n = b - a
+                    joined[s, d] = _join_endpoints(
+                        torch.from_numpy(qh[a:b]).to(dev),
+                        torch.from_numpy(q_nh[a:b]).to(dev), uh, offs,
+                        ep_pos, ep_seq, ep_side, self._tables[dev][0],
+                        mt[:, 0], mt[:, 1],
+                        torch.full((n,), bool(p.skip_self or p.skip_prefix),
+                                   device=dev),
+                        torch.full((n,), bool(p.lower_triangular), device=dev),
+                        cap=self.cap // self.n_shard)
+            swept = []
+            for d, a, b in slots:
+                dev = self.mesh.devices[0, d]
+                parts = [joined[s, d] for s in range(self.n_shard)]
+                pos, seq, side, grp = (
+                    torch.cat([part[j].to(dev) for part in parts], dim=1)
+                    for j in range(4))
+                over = torch.stack([part[4].to(dev) for part in parts]).any(0)
+                _, cutoffs, cut_div = self._tables[dev]
                 mt = torch.from_numpy(meta[a:b]).to(dev)
-                n = b - a
-                joined[s, d] = _join_endpoints(
-                    torch.from_numpy(qh[a:b]).to(dev),
-                    torch.from_numpy(q_nh[a:b]).to(dev), uh, offs, ep_pos,
-                    ep_seq, ep_side, self._tables[dev][0], mt[:, 0], mt[:, 1],
-                    torch.full((n,), bool(p.skip_self or p.skip_prefix),
-                               device=dev),
-                    torch.full((n,), bool(p.lower_triangular), device=dev),
-                    cap=self.cap // self.n_shard)
-        swept = []
-        for d, a, b in slots:
-            dev = self.mesh.devices[0, d]
-            parts = [joined[s, d] for s in range(self.n_shard)]
-            pos, seq, side, grp = (
-                torch.cat([part[j].to(dev) for part in parts], dim=1)
-                for j in range(4))
-            over = torch.stack([part[4].to(dev) for part in parts]).any(0)
-            _, cutoffs, cut_div = self._tables[dev]
-            mt = torch.from_numpy(meta[a:b]).to(dev)
-            cand, ncand, run_over = _sweep_candidates(
-                pos, seq, side, grp, mt[:, 2], mt[:, 3], cutoffs, cut_div,
-                int(p.window_length), maxc=self.maxc,
-                stage1=bool(p.stage1_topANI_filter))
-            swept.append((cand, ncand, over | run_over))
-        cand_l, ncand_l, over_l = [], [], []
-        for cand, ncand, over in swept:
-            n = ncand.cpu().tolist()
-            ncand_l += n
-            over_l += over.cpu().tolist()
-            cand_l += cand[:, :max(n)].cpu().tolist()
-        perf.add("map.device_s", time.monotonic() - t0)
+                cand, ncand, run_over = _sweep_candidates(
+                    pos, seq, side, grp, mt[:, 2], mt[:, 3], cutoffs, cut_div,
+                    int(p.window_length), maxc=self.maxc,
+                    stage1=bool(p.stage1_topANI_filter))
+                swept.append((cand, ncand, over | run_over))
+            cand_l, ncand_l, over_l = [], [], []
+            for cand, ncand, over in swept:
+                n = ncand.cpu().tolist()
+                ncand_l += n
+                over_l += over.cpu().tolist()
+                cand_l += cand[:, :max(n)].cpu().tolist()
+        perf.add("map.device_s", run.seconds)
         perf.add("map.device_calls", 1)
         return answer_rows(frags, cand_l, ncand_l, over_l, p)
 

@@ -20,6 +20,7 @@ from .map.engine import Mapper, log
 from .map.sweep import filter_by_group
 from .params import FILTER_ONETOONE, MapParams
 from .index.build import build_index
+from .utils import perf
 
 
 def create_target_subsets(idm: SequenceIdManager, target_names: list[str],
@@ -102,22 +103,35 @@ def _map_queries_device(mapper, index, query_readers, query_names, params,
 
     Byte-identical to the host path: the device programs are identical
     per fragment and per candidate (tests/test_torch_l1.py,
-    tests/test_torch_l2.py) and fragment order is preserved end to end."""
+    tests/test_torch_l2.py) and fragment order is preserved end to end.
+
+    Spans (timed in this process, never in the workers): map.queries,
+    and under it map.pool (the workers' start and stop), map.sketch,
+    map.l1, map.l2 and map.l2_host (phases 1, 2, 2.5 and 3)."""
+    with perf.span("map.queries"):
+        return _map_queries_phases(mapper, index, query_readers,
+                                   query_names, params, meter)
+
+
+def _map_queries_phases(mapper, index, query_readers, query_names, params,
+                        meter):
     results: list = []
     pool = None
     _MP_STATE.update(mapper=mapper, index=index, readers=query_readers)
     if params.threads > 1 and len(query_names) > 1:
         import multiprocessing as mp_mod
 
-        pool = mp_mod.get_context("fork").Pool(processes=params.threads)
+        with perf.span("map.pool"):
+            pool = mp_mod.get_context("fork").Pool(processes=params.threads)
     try:
         WAVE = 64
         for w0 in range(0, len(query_names), WAVE):
             wave = query_names[w0:w0 + WAVE]
-            if pool is not None:
-                sketched = pool.map(_mp_sketch_one, wave)
-            else:
-                sketched = [_mp_sketch_one(q) for q in wave]
+            with perf.span("map.sketch"):
+                if pool is not None:
+                    sketched = pool.map(_mp_sketch_one, wave)
+                else:
+                    sketched = [_mp_sketch_one(q) for q in wave]
             # phase 2: one batched device stream over the wave
             flat = []            # (wave_idx, entry_idx)
             frag_dicts = []
@@ -134,7 +148,8 @@ def _map_queries_device(mapper, index, query_readers, query_names, params,
                             hashes=sk.hashes, n=sk.sketch_size,
                             q_len=q_len, q_seqid=q_seqid, q_group=q_group,
                             min_hits=mapper._minimum_hits_for(q_len, sk)))
-            rows = mapper.device_l1.candidates(frag_dicts)
+            with perf.span("map.l1"):
+                rows = mapper.device_l1.candidates(frag_dicts)
             # attach rows; drop skipped (not ok) fragments entirely
             tasks = []
             rows_of: dict = {k: r for k, r in zip(flat, rows)}
@@ -159,7 +174,9 @@ def _map_queries_device(mapper, index, query_readers, query_names, params,
                         for ci, r in enumerate(rws or ()):
                             l2_rows.append((sk, q_len, L1Candidate(*r)))
                             l2_pos.append((ti, ei, ci))
-                l2_got = mapper.device_l2.walk(l2_rows) if l2_rows else []
+                with perf.span("map.l2"):
+                    l2_got = (mapper.device_l2.walk(l2_rows) if l2_rows
+                              else [])
                 l2_map: dict = {}
                 for (ti, ei, ci), g in zip(l2_pos, l2_got):
                     l2_map.setdefault((ti, ei), {})[ci] = g
@@ -174,10 +191,11 @@ def _map_queries_device(mapper, index, query_readers, query_names, params,
                                    for ci in range(len(rws))]
                         ent5.append((fi, q_len, sk, rws, l2s))
                     tasks[ti] = (qname, qlen, ent5)
-            if pool is not None:
-                got3 = pool.starmap(_mp_l2_one, tasks)
-            else:
-                got3 = [_mp_l2_one(*t) for t in tasks]
+            with perf.span("map.l2_host"):
+                if pool is not None:
+                    got3 = pool.starmap(_mp_l2_one, tasks)
+                else:
+                    got3 = [_mp_l2_one(*t) for t in tasks]
             it = iter(got3)
             for wi, got in enumerate(sketched):
                 if got is None:
@@ -188,8 +206,9 @@ def _map_queries_device(mapper, index, query_readers, query_names, params,
                     meter.increment(r.query_len)
     finally:
         if pool is not None:
-            pool.terminate()
-            pool.join()
+            with perf.span("map.pool"):
+                pool.terminate()
+                pool.join()
         _MP_STATE.clear()
     return results
 
@@ -290,12 +309,14 @@ def run_mapping(params: MapParams, out, scaffold_writer=None,
     target_readers = {f: FastaReader(f) for f in params.ref_sequences}
 
     def build_subset(subset):
-        seqs = []
-        for name in subset:
-            for reader in target_readers.values():
-                if name in reader:
-                    seqs.append((idm.get_sequence_id(name), reader.fetch(name)))
-                    break
+        with perf.span("map.index.fetch"):
+            seqs = []
+            for name in subset:
+                for reader in target_readers.values():
+                    if name in reader:
+                        seqs.append((idm.get_sequence_id(name),
+                                     reader.fetch(name)))
+                        break
         return build_index(params, seqs, log=log)
 
     # -W: write the index per subset and exit (computeMap.hpp:405-416)
@@ -308,7 +329,8 @@ def run_mapping(params: MapParams, out, scaffold_writer=None,
                     f"[wfmash::mashmap] Processing subset {subset_idx + 1}/"
                     f"{len(subsets)} (indexing): {params.index_filename}"
                 )
-                index = build_subset(subset)
+                with perf.span("map.index"):
+                    index = build_subset(subset)
                 write_subset_index(
                     fh, index, subset, dict(idm.name_to_id), params,
                     subset_idx, len(subsets),
@@ -329,17 +351,21 @@ def run_mapping(params: MapParams, out, scaffold_writer=None,
         log(
             f"[wfmash::mashmap] Processing subset {subset_idx + 1}/{len(subsets)} (mapping)"
         )
-        if index_stream is not None:
-            from .index.store import read_subset_index
+        with perf.span("map.index"):
+            if index_stream is not None:
+                from .index.store import read_subset_index
 
-            loaded = read_subset_index(index_stream, params)
-            if loaded is None:
-                raise ValueError("index file has fewer subsets than expected")
-            index, _, _ = loaded
-        else:
-            index = build_subset(subset)
-
-        _device_stages(mapper, index, params, device)
+                with perf.span("map.index.load"):
+                    loaded = read_subset_index(index_stream, params)
+                if loaded is None:
+                    raise ValueError(
+                        "index file has fewer subsets than expected")
+                index, _, _ = loaded
+            else:
+                index = build_subset(subset)
+            # the device stages' copy of the index
+            with perf.span("map.index.upload"):
+                _device_stages(mapper, index, params, device)
 
         from .utils.progress import ProgressMeter
 
@@ -382,8 +408,9 @@ def run_mapping(params: MapParams, out, scaffold_writer=None,
                 _MP_STATE["mapper"] = mapper
                 _MP_STATE["index"] = index
                 _MP_STATE["readers"] = query_readers
-                with ctx.Pool(processes=min(params.threads,
-                                            len(query_names))) as pool:
+                with perf.span("map.queries"), ctx.Pool(
+                        processes=min(params.threads,
+                                      len(query_names))) as pool:
                     # imap (not map): children can't advance the parent's
                     # progress meter, so tick it as each result arrives
                     results = []
@@ -398,23 +425,26 @@ def run_mapping(params: MapParams, out, scaffold_writer=None,
             finally:
                 _MP_STATE.clear()
         if results is None:
-            results = [run_one(q) for q in query_names]
+            with perf.span("map.queries"):
+                results = [run_one(q) for q in query_names]
 
-        for qname, result in zip(query_names, results):
-            if result is None:
-                continue
-            if params.filter_mode == FILTER_ONETOONE:
-                qid = idm.get_sequence_id(qname)
-                combined.setdefault(qid, []).append(result.mappings)
-            else:
-                write_mapping_rows(
-                    out, qname, result.query_len, result.mappings,
-                    result.chain_info, idm, params.merge_mappings,
-                )
+        with perf.span("map.write"):
+            for qname, result in zip(query_names, results):
+                if result is None:
+                    continue
+                if params.filter_mode == FILTER_ONETOONE:
+                    qid = idm.get_sequence_id(qname)
+                    combined.setdefault(qid, []).append(result.mappings)
+                else:
+                    write_mapping_rows(
+                        out, qname, result.query_len, result.mappings,
+                        result.chain_info, idm, params.merge_mappings,
+                    )
         meter.finish()
 
     if params.filter_mode == FILTER_ONETOONE:
-        _one_to_one_output(params, idm, mapper, combined, out)
+        with perf.span("map.write"):
+            _one_to_one_output(params, idm, mapper, combined, out)
 
 
 def _one_to_one_output(params, idm, mapper, combined, out) -> None:
