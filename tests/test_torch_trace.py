@@ -247,6 +247,34 @@ def test_align_run_fills_every_span_and_records_change_nothing(
     assert perf._stack() == []
 
 
+def test_align_run_counts_the_pieces_it_stitches(pair, monkeypatch,
+                                                capsys):
+    """align.assemble.pieces and align.assemble.ops are the pieces of
+    every block the engine stitched and the ops it gave them, and the
+    WFMASH_TPU_PERF dump prints both."""
+    from wfmash_tpu_torch.align import cigar
+
+    stitched = []
+    stitch = cigar.stitch_pieces
+
+    def spy(pieces):
+        ops = stitch(pieces)
+        stitched.append((len(pieces), len(ops)))
+        return ops
+
+    monkeypatch.setattr(cigar, "stitch_pieces", spy)
+    paf, snap = _align(pair, monkeypatch)
+    assert "\tcg:Z:" in paf
+    # some block was planned into more than one piece
+    assert any(n > 1 for n, _ in stitched)
+    assert snap["align.assemble.pieces"] == sum(n for n, _ in stitched)
+    assert snap["align.assemble.ops"] == sum(k for _, k in stitched)
+    perf.dump()
+    err = capsys.readouterr().err
+    for key in ("align.assemble.pieces", "align.assemble.ops"):
+        assert f"[wfmash::perf] {key} = {snap[key]:.3f}" in err
+
+
 def test_map_run_fills_every_span_and_dumps_them(pair):
     """`-m -t 2` through the device stages on CPU tensors, in its own
     process (the pool forks): WFMASH_TPU_PERF=1 prints every span's

@@ -33,9 +33,10 @@ def format_ops(ops: list[Op]) -> str:
     return "".join(f"{n}{op}" for n, op in ops if n > 0)
 
 
-def merge_ops(ops: list[Op]) -> list[Op]:
-    """Merge adjacent same-op runs, dropping zero-length ops."""
-    out: list[Op] = []
+def merge_ops(ops: list[Op], out: list[Op] | None = None) -> list[Op]:
+    """Merge adjacent same-op runs, dropping zero-length ops; appended to
+    `out`, a list already merged so, when one is given."""
+    out = [] if out is None else out
     for n, op in ops:
         if n <= 0:
             continue
@@ -191,6 +192,26 @@ def erode_tail(ops: list[Op], min_patch: int = 128, max_erode: int = 4096,
 def merge_adjacent(ops1: list[Op], ops2: list[Op]) -> list[Op]:
     """Concatenate two op lists, merging at the junction (wflign.cpp:211-238)."""
     return merge_ops(list(ops1) + list(ops2))
+
+
+def stitch_pieces(pieces) -> list[Op]:
+    """Join a block's piece CIGARs in one pass over their ops.
+
+    The same list as folding `merge_adjacent` over the pieces: a piece
+    that finds the list empty is copied as it is, and the next piece
+    normalises the whole (zero-length ops dropped, runs merged across
+    the junctions).
+    """
+    out: list[Op] = []
+    normal = False
+    for p in pieces:
+        if not out:
+            out, normal = list(p), False
+            continue
+        if not normal:
+            out, normal = merge_ops(out), True
+        merge_ops(p, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -582,7 +582,7 @@ class SegmentedEngine:
         device thread's solve beside the host exact pass and the wait
         for it, escalations, the inversion try, the stitching."""
         from ..utils import perf
-        from .cigar import merge_adjacent
+        from .cigar import merge_adjacent, stitch_pieces
 
         with perf.span("align.plan"):
             n = len(jobs)
@@ -1021,6 +1021,7 @@ class SegmentedEngine:
                       f"{sorted(self._escal_census.items())}", file=sys.stderr)
 
             results = []
+            n_pieces = n_ops = 0
             for ji in range(n):
                 pieces = plans[ji]
                 if pieces is None or any(p is None for p in pieces):
@@ -1035,10 +1036,12 @@ class SegmentedEngine:
                           f"holes={holes[:8]}", file=_sys.stderr)
                     results.append(None)
                     continue
-                ops: list = []
-                for p in pieces:
-                    ops = merge_adjacent(ops, p) if ops else list(p)
+                ops = stitch_pieces(pieces)
+                n_pieces += len(pieces)
+                n_ops += len(ops)
                 results.append(ops)
+            perf.add("align.assemble.pieces", n_pieces)
+            perf.add("align.assemble.ops", n_ops)
             return results
 
     def _detect_inversions(self, plans, bounds_of, candidates):
