@@ -29,7 +29,7 @@ ALIGN_SPANS = {
     "cli.main", "map.identity", "align.loop", "align.loop.parse",
     "align.loop.fetch", "align.loop.write", "align.engine", "align.plan",
     "align.seg_solve", "align.exact", "align.device_wait",
-    "align.inversion", "align.assemble",
+    "align.escalate", "align.inversion", "align.assemble",
     "align.device", "align.tier.pack", "align.tier.launch",
     "align.tier.collect", "align.patch"}
 MAP_SPANS = {
@@ -295,3 +295,134 @@ def test_map_run_fills_every_span_and_dumps_them(pair):
     assert snap["map.device_s"] == pytest.approx(
         snap["map.l1.device_s"] + snap["map.l2.device_s"], abs=2e-3)
     assert snap["map.device_calls"] >= 1 and snap["map.l2_device_calls"] >= 1
+
+
+@pytest.fixture(scope="module")
+def divergent_batch():
+    """One SegmentedEngine batch on the CPU, recorded: a 650 bp block at
+    ~34% divergence (substitutions alone) that no anchor plan holds, and
+    a 2 kb block at ~11% that plans into pieces. The first goes whole to
+    the exact engine, whose tiers cannot settle it, so it re-enters the
+    sweep recursion: kernel B's plain version. The exact engine's span
+    ladder stops at 512 lanes to keep the sweep short on the CPU."""
+    from wfmash_tpu_torch.align.segmented import SegmentedEngine
+    from wfmash_tpu_torch.align.wfa_exact import ExactWfaEngine
+    from wfmash_tpu_torch.align.wfa_np import Penalties
+
+    p = Penalties(5, 8, 2, 24, 1)
+    cpu = torch.device("cpu")
+    eng = SegmentedEngine(p, ExactWfaEngine(p, cpu, max_span=513), cpu)
+    rng = np.random.default_rng(2)
+    a = random_dna(rng, 650)
+    jobs = [(mutate(rng, a, 0.45), a, None)]
+    b = random_dna(rng, 2_000)
+    jobs.append((mutate(rng, b, 0.15), b, None))
+    perf.reset()
+    with perf.recording() as records:
+        out = eng.align_batch(jobs)
+    return eng, out, records, perf.snapshot()
+
+
+def test_engine_counters_on_a_divergent_batch(divergent_batch):
+    """The counters align.exact_blocks, .banded and .inversions are the
+    engine's stats; align.segments and align.escalated count wider than
+    the reference's stats (every piece and whole job; every cause); the
+    pieces escalated are at most the pieces, and the sum of their
+    causes; every sweep that had problems counted lanes."""
+    eng, out, _, snap = divergent_batch
+    assert all(ops for ops in out)
+    for key in ("exact_blocks", "banded", "inversions"):
+        assert snap.get(f"align.{key}", 0) == eng.stats[key], key
+    assert snap["align.segments"] >= eng.stats["segments"] > 0
+    assert snap.get("align.escalated.tier_reject", 0) \
+        >= eng.stats["escalated"]
+    assert snap["align.escalated.unanchorable"] == 1
+    assert snap["align.exact_blocks"] == 1
+    assert 1 <= snap["align.escalated"] <= snap["align.segments"]
+    assert snap["align.escalated"] == sum(
+        snap.get(f"align.escalated.{c}", 0)
+        for c in ("tier_reject", "oversize", "unanchorable"))
+    problems = sum(v for k, v in snap.items()
+                   if k.startswith("align.sweep_problems."))
+    assert problems > 0 and snap["align.sweep.lanes"] > 0
+    assert snap["align.sweep.lanes"] == eng.exact.sweeps.lanes
+    assert 1 <= snap["align.sweep.launches"] <= problems
+
+
+def test_sweep_lanes_wherever_it_has_problems(monkeypatch):
+    """Per ExactSweeps.sweep call: the lanes it adds are above 0 wherever
+    its problems are, and it adds one launch; a call whose problems are
+    all done at score 0 adds neither."""
+    from wfmash_tpu_torch.align.wfa_exact import ExactWfaEngine
+    from wfmash_tpu_torch.align.wfa_np import Penalties
+    from wfmash_tpu_torch.align.wfa_sweep import ExactSweeps
+
+    calls = []
+    real = ExactSweeps.sweep
+
+    def spy(self, *a, **kw):
+        before = perf.snapshot()
+        got = real(self, *a, **kw)
+        after = perf.snapshot()
+        calls.append({k: after.get(k, 0) - before.get(k, 0)
+                      for k in after})
+        return got
+
+    monkeypatch.setattr(ExactSweeps, "sweep", spy)
+    p = Penalties(5, 8, 2, 24, 1)
+    eng = ExactWfaEngine(p, torch.device("cpu"), host_len=64)
+    rng = np.random.default_rng(5)
+    t = random_dna(rng, 300)
+    jobs = [(mutate(rng, t, 0.05), t, None), (t[:200], t[:200], None)]
+    perf.reset()
+    out = eng.align_batch(jobs)
+    assert out[1] == [(200, "=")]
+    assert calls
+    for c in calls:
+        problems = sum(v for k, v in c.items()
+                       if k.startswith("align.sweep_problems."))
+        if problems > 0:
+            assert c["align.sweep.lanes"] > 0
+            assert c["align.sweep.launches"] == 1
+        else:
+            assert c.get("align.sweep.lanes", 0) == 0
+            assert c.get("align.sweep.launches", 0) == 0
+    assert perf.get("align.sweep.lanes") == eng.sweeps.lanes
+
+
+def _self_ns(rec, records):
+    kids = [(r["start"], r["end"]) for r in records
+            if r["parent"] == rec["id"]]
+    return (rec["end"] - rec["start"]) - perf._covered(
+        kids, rec["start"], rec["end"])
+
+
+def test_escalate_and_exact_are_separate_spans(divergent_batch):
+    """align.exact (the host pass beside the device thread, under
+    align.seg_solve) and align.escalate (tier failures after the join,
+    under align.engine) are separate spans; each one's counters are its
+    records' durations and self times, and the self times of the engine
+    thread's spans add up to the engine's wall."""
+    _, _, records, snap = divergent_batch
+    by_id = {r["id"]: r for r in records}
+    (eng,) = [r for r in records if r["name"] == "align.engine"]
+    exact = [r for r in records if r["name"] == "align.exact"]
+    escalate = [r for r in records if r["name"] == "align.escalate"]
+    assert exact and escalate
+    assert all(by_id[r["parent"]]["name"] == "align.seg_solve"
+               for r in exact)
+    assert all(r["parent"] == eng["id"] for r in escalate)
+    for x in exact:
+        for e in escalate:
+            assert x["end"] <= e["start"] or e["end"] <= x["start"]
+    for name, recs in (("align.exact", exact), ("align.escalate", escalate)):
+        wall = sum(r["end"] - r["start"] for r in recs)
+        own = sum(_self_ns(r, records) for r in recs)
+        assert snap[f"{name}_s"] == pytest.approx(wall / 1e9, rel=1e-9)
+        assert snap[f"{name}.self_s"] == pytest.approx(own / 1e9, rel=1e-9)
+    # the exact engine's work on the unanchorable block is align.exact's
+    assert snap["align.exact_s"] > snap["align.escalate_s"]
+    main = [r for r in records if r["thread"] == eng["thread"]
+            and eng["start"] <= r["start"] and r["end"] <= eng["end"]]
+    total = sum(_self_ns(r, records) for r in main)
+    assert total == pytest.approx(eng["end"] - eng["start"], abs=2e6)

@@ -556,6 +556,19 @@ class SegmentedEngine:
         # dict(ji, qa, qb, ta, tb, ops) with block-relative coords
         self.inversions: list = []
 
+    @staticmethod
+    def _escalate(cause: str, n: int = 1) -> None:
+        """Counts n pieces sent on to the exact engine: the perf counters
+        align.escalated and align.escalated.<cause>, the cause one of
+        `tier_reject` (the tiers failed it), `oversize` (no tier's
+        envelope holds it) and `unanchorable` (a block with no anchor
+        plan). `stats` keeps the reference's narrower count: the tier
+        rejects of the planned segments."""
+        from ..utils import perf
+
+        perf.add("align.escalated", n)
+        perf.add(f"align.escalated.{cause}", n)
+
     def _host_smalls_ok(self) -> bool:
         """Whether boundary-patch / escalation / inversion-try jobs run
         in one native host call each instead of on the kernel tiers.
@@ -574,8 +587,14 @@ class SegmentedEngine:
     def align_batch(self, jobs, bounds=None):
         from ..utils import perf
 
+        before = dict(self.stats)
         with perf.span("align.engine") as eng:
-            return self._align_batch(jobs, bounds, eng)
+            out = self._align_batch(jobs, bounds, eng)
+        # these counters count as the reference's stats do; align.segments
+        # and align.escalated count wider (_align_batch, _escalate)
+        for key in ("exact_blocks", "banded", "inversions"):
+            perf.add(f"align.{key}", self.stats[key] - before[key])
+        return out
 
     def _align_batch(self, jobs, bounds, eng):
         """align_batch's phases, each a span under `eng`: planning, the
@@ -681,6 +700,7 @@ class SegmentedEngine:
                     else:
                         exact_jobs.append((ji, 0, q, t, ef))
                         self.stats["exact_blocks"] += 1
+                        self._escalate("oversize")
                 else:
                     todo.append((ji, q, t))
             # phase 2: per-block anchor planning (native C++ host path),
@@ -697,6 +717,7 @@ class SegmentedEngine:
                     plans[ji] = None
                     exact_jobs.append((ji, 0, q, t, None))
                     self.stats["exact_blocks"] += 1
+                    self._escalate("unanchorable")
                     continue
                 bounds_q, bounds_t = pb
                 bounds_of[ji] = (bounds_q, bounds_t)
@@ -744,6 +765,7 @@ class SegmentedEngine:
                                    else _place_short(sq, st))
                             if off is None:
                                 exact_jobs.append((ji, pi, sq, st, ef))
+                                self._escalate("oversize")
                             elif skew > 0:
                                 placed_jobs.append(
                                     (ji, pi, sq[off:off + len(st)], st,
@@ -758,6 +780,7 @@ class SegmentedEngine:
                                      else []))
                         else:
                             exact_jobs.append((ji, pi, sq, st, ef))
+                            self._escalate("oversize")
                 plans[ji] = pieces
 
             # planning complete: every device-eligible piece of every block
@@ -766,6 +789,9 @@ class SegmentedEngine:
             # sweeping at their bound instead of the tier smax); placed_jobs
             # is final, so release the mids stage too
             self.stats["segments"] += len(seg_jobs)
+            # align.segments: every piece planned and every job taken whole
+            perf.add("align.segments", len(seg_jobs) + len(placed_jobs)
+                     + len(exact_jobs) + len(host_jobs))
         with perf.span("align.seg_solve"):
             unc: list = []
             seg_stat: list = []
@@ -897,6 +923,7 @@ class SegmentedEngine:
             if ops is None:
                 escal_jobs.append((ji, pi, sq, st, ef))
                 self.stats["escalated"] += 1
+                self._escalate("tier_reject")
             elif plans[ji] is None:
                 plans[ji] = [ops]              # whole-block device result
             else:
@@ -917,14 +944,16 @@ class SegmentedEngine:
                             self.stats["banded"] += 1
             host_mid = [k for k, o in enumerate(got_m) if o is None]
             if host_mid:
-                try:
-                    got_h = self.exact.align_batch(
-                        [(mids[k][0], mids[k][1], None)
-                         for k in host_mid], allow_seg=False)
-                except TypeError:
-                    got_h = self.exact.align_batch(
-                        [(mids[k][0], mids[k][1], None)
-                         for k in host_mid])
+                self._escalate("tier_reject", len(host_mid))
+                with perf.span("align.escalate"):
+                    try:
+                        got_h = self.exact.align_batch(
+                            [(mids[k][0], mids[k][1], None)
+                             for k in host_mid], allow_seg=False)
+                    except TypeError:
+                        got_h = self.exact.align_batch(
+                            [(mids[k][0], mids[k][1], None)
+                             for k in host_mid])
                 for k, o in zip(host_mid, got_h):
                     got_m[k] = o
             for (ji, pi, q, t, pre, post), ops in zip(placed_jobs, got_m):
@@ -934,7 +963,9 @@ class SegmentedEngine:
                     wrapped
                 plans[ji][pi] = wrapped
 
-        with perf.span("align.exact"):
+        # the escalation pass: tier failures on the exact engine (its
+        # span apart from align.exact, the host pass beside the device)
+        with perf.span("align.escalate"):
             rest = escal_jobs
             if host_small and escal_jobs:
                 # tier failures are end-to-end pieces with a trivial valid

@@ -681,8 +681,14 @@ class ExactSweeps:
                 torch.from_numpy(np.ascontiguousarray(seed_anc, np.uint32)
                                  .view(np.int32)).to(dev),
                 penalties=self.p, K=K, max_s=int(max_s)).cpu().numpy()
+        lanes = int(term_lanes(term).sum())
         self.levels += int(term[:, 4].astype(np.int64).sum())
-        self.lanes += int(term_lanes(term).sum())
+        self.lanes += lanes
+        # run_sweep calls (a kernel launch on the card) and the lanes the
+        # kernel counted: with the launches' device time, the share of its
+        # operations bound
+        perf.add("align.sweep.launches", 1)
+        perf.add("align.sweep.lanes", lanes)
         fin = term[:, 0] != 0
         finished = done0 | fin
         clipped = term[:, 3] != 0
