@@ -21,6 +21,7 @@ rows and still exit 0.
 
 from __future__ import annotations
 
+import bisect
 import os
 import re
 import sys
@@ -112,35 +113,100 @@ def parse_mashmap_row(line: str, target_padding: int, query_padding: int):
 
 
 class _NormCache:
-    """Normalized-full-sequence cache for the align loop.
+    """Normalised record intervals of one reader, for the align loop.
 
-    Each PAF record re-fetches (and re-normalizes) its padded slices;
-    on all-vs-all workloads every sequence is touched hundreds of
-    times. Caching bytes(normalize(full_sequence)) once per name makes
-    build_job a pair of slices. Bounded by a shared byte budget
-    (WFMASH_TPU_ALIGN_SEQ_CACHE_MB, default 1024 across both readers);
-    sequences that would exceed it fall back to per-record fetches, so
-    the streaming-memory story survives at scale."""
+    `plan` takes every record's span on a sequence name before any job is
+    built; per name the spans, clamped to the sequence, merge into sorted
+    half-open intervals where they overlap or touch. An interval is
+    fetched and normalised once, the first time a record needs it, and
+    `get` slices a record's range out of it: dense all-vs-all records
+    merge into whole sequences and read each base once, a chunk's
+    scattered records read only what they span. Normalisation is a
+    per-base lookup, so the slice equals a record's own fetch.
+
+    A byte budget shared by both readers (WFMASH_TPU_ALIGN_SEQ_CACHE_MB,
+    default 1024) counts interval bytes: a name whose intervals would
+    exceed what is left falls back to per-record fetches. A name absent
+    from the FASTA plans nothing and falls back too, so its record fails
+    in build_job. Nothing outlives the run_alignment call that made it."""
 
     def __init__(self, reader: FastaReader, budget: list):
         self._reader = reader
         self._budget = budget        # [remaining_bytes], shared
-        self._seqs: dict = {}
+        self._spans: dict = {}       # name -> planned (start, end)s
+        self._seqs: dict = {}        # name -> (starts, ends, data) | None
 
-    def get(self, name: str):
-        got = self._seqs.get(name)
-        if got is not None:
-            return got
-        if name in self._seqs:       # previously over budget
-            return None
-        if self._reader.seq_len(name) > self._budget[0]:
+    def plan(self, name: str, start: int, end: int) -> None:
+        if name not in self._reader:
+            return
+        start, end = max(0, start), min(end, self._reader.seq_len(name))
+        if start < end:
+            self._spans.setdefault(name, []).append((start, end))
+
+    def _intervals(self, name: str):
+        """The name's merged intervals, its budget taken at first touch;
+        None where it falls back to per-record fetches."""
+        if name in self._seqs:
+            return self._seqs[name]
+        starts, ends = [], []
+        for lo, hi in sorted(self._spans.pop(name, ())):
+            if ends and lo <= ends[-1]:
+                ends[-1] = max(ends[-1], hi)
+            else:
+                starts.append(lo)
+                ends.append(hi)
+        size = sum(ends) - sum(starts)
+        if not starts or size > self._budget[0]:
             self._seqs[name] = None
             return None
-        with perf.span("align.loop.fetch"):
-            seq = bytes(normalize(self._reader.fetch(name)))
-        self._budget[0] -= len(seq)
-        self._seqs[name] = seq
-        return seq
+        self._budget[0] -= size
+        self._seqs[name] = got = (starts, ends, [None] * len(starts))
+        return got
+
+    def get(self, name: str, start: int, end: int):
+        """Normalised bases [start, end) of `name`, clamped as `fetch`
+        clamps; None where the range is not held (a per-record fetch)."""
+        got = self._intervals(name)
+        if got is None:
+            return None
+        starts, ends, data = got
+        start, end = max(0, start), min(end, self._reader.seq_len(name))
+        if start >= end:
+            return b""
+        i = bisect.bisect_right(starts, start) - 1
+        if i < 0 or ends[i] < end:
+            return None
+        if data[i] is None:
+            with perf.span("align.loop.fetch"):
+                data[i] = bytes(normalize(self._reader.fetch(
+                    name, starts[i], ends[i] - 1)))
+            perf.add("align.loop.fetched_bp", len(data[i]))
+        return data[i][start - starts[i]:end - starts[i]]
+
+
+def _plan_caches(rows, ref_reader: FastaReader, query_reader: FastaReader,
+                 same_file: bool):
+    """The reference and query readers' interval caches over `rows`, under
+    one budget; one cache holding both roles' spans where query and target
+    are the same file."""
+    budget = [int(float(os.environ.get(
+        "WFMASH_TPU_ALIGN_SEQ_CACHE_MB", "1024")) * 1e6)]
+    ref_cache = _NormCache(ref_reader, budget)
+    query_cache = (ref_cache if same_file
+                   else _NormCache(query_reader, budget))
+    for row in rows:
+        ref_cache.plan(row["target_name"], row["r_start"], row["r_end"])
+        query_cache.plan(row["query_name"], row["q_start"], row["q_end"])
+    return ref_cache, query_cache
+
+
+def _fetch_record(reader: FastaReader, name: str, start: int,
+                  end: int) -> bytes:
+    """A record's own normalised range, where no cache holds it."""
+    with perf.span("align.loop.fetch"):
+        seq = bytes(normalize(reader.fetch(name, start, end - 1)))
+    perf.add("align.loop.fetched_bp", len(seq))
+    return seq
 
 
 def build_job(row, ref_reader: FastaReader, query_reader: FastaReader,
@@ -153,20 +219,16 @@ def build_job(row, ref_reader: FastaReader, query_reader: FastaReader,
     pointer handed to do_biwfa_alignment starts at rStartPos and the
     length excludes the tail padding (computeAlignments.hpp:675,706) —
     so the live path never reads those bases. Verified vestigial."""
-    tfull = ref_cache.get(row["target_name"]) if ref_cache else None
-    if tfull is not None:
-        target = tfull[row["r_start"]:row["r_end"]]
-    else:
-        with perf.span("align.loop.fetch"):
-            target = bytes(normalize(ref_reader.fetch(
-                row["target_name"], row["r_start"], row["r_end"] - 1)))
-    qfull = query_cache.get(row["query_name"]) if query_cache else None
-    if qfull is not None:
-        qnorm = qfull[row["q_start"]:row["q_end"]]
-    else:
-        with perf.span("align.loop.fetch"):
-            qnorm = bytes(normalize(query_reader.fetch(
-                row["query_name"], row["q_start"], row["q_end"] - 1)))
+    target = ref_cache.get(row["target_name"], row["r_start"],
+                           row["r_end"]) if ref_cache else None
+    if target is None:
+        target = _fetch_record(ref_reader, row["target_name"],
+                               row["r_start"], row["r_end"])
+    qnorm = query_cache.get(row["query_name"], row["q_start"],
+                            row["q_end"]) if query_cache else None
+    if qnorm is None:
+        qnorm = _fetch_record(query_reader, row["query_name"],
+                              row["q_start"], row["q_end"])
     if row["is_rev"]:
         query = bytes(reverse_complement(bytearray(qnorm)))
     else:
@@ -496,10 +558,12 @@ def _dump_plans(params, chunk, base_idx):
 
 def run_alignment(params: AlignParams, out, device) -> None:
     """The align loop, in the span align.loop: align.loop.parse (the
-    mapping PAF read and parsed), align.loop.fetch (each sequence fetched
-    and normalised: a cache miss, or a record's slices where the cache's
-    budget is spent), the engine's and the patching's spans, and
-    align.loop.write (each batch's rows written)."""
+    mapping PAF read and parsed), align.loop.fetch (each merged interval
+    of the records' spans fetched and normalised at its first use, or a
+    record's own ranges where the cache's budget is spent; the counter
+    align.loop.fetched_bp adds the bases either read), the engine's and
+    the patching's spans, and align.loop.write (each batch's rows
+    written)."""
     with perf.span("align.loop"):
         _run_alignment(params, out, device)
 
@@ -531,12 +595,9 @@ def _run_alignment(params: AlignParams, out, device) -> None:
     if params.sam_format:
         write_sam_header(out, ref_reader)
 
-    budget = [int(float(os.environ.get(
-        "WFMASH_TPU_ALIGN_SEQ_CACHE_MB", "1024")) * 1e6)]
-    ref_cache = _NormCache(ref_reader, budget)
-    query_cache = (_NormCache(query_reader, budget)
-                   if params.query_sequences[0] != params.ref_sequences[0]
-                   else ref_cache)
+    ref_cache, query_cache = _plan_caches(
+        rows, ref_reader, query_reader,
+        params.query_sequences[0] == params.ref_sequences[0])
 
     engine = make_engine(params, device)
 
