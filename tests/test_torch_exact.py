@@ -135,7 +135,7 @@ def test_make_engine_choices(env, kind, monkeypatch):
         assert type(eng.exact) is ExactWfaEngine
         assert eng.exact.seg_solver is eng.solver
         assert eng.exact.HOST_LEN == 1900
-        assert eng.exact.banded_leaves == eng.banded_pieces
+        assert eng.exact.banded_leaves is True
         assert eng.exact.device == CPU
 
 

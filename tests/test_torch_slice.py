@@ -97,7 +97,6 @@ def test_segmented_engine_matches_reference():
     port = SegmentedEngine(
         PATCH, ExactWfaEngine.from_reference(ref.exact, CPU), CPU,
         solver=wfa_seg.TieredSegmentSolver.from_reference(ref_solver, CPU))
-    assert not port._host_smalls_ok()
     assert port.exact.seg_solver is port.solver
     assert (port.exact.HOST_LEN, port.exact.banded_leaves) == (
         ref.exact.HOST_LEN, ref.exact.banded_leaves) == (1900, True)
@@ -108,6 +107,54 @@ def test_segmented_engine_matches_reference():
     assert port.inversions == ref.inversions and port.inversions
     assert port.stats == ref.stats
     assert port.stats["segments"] > 20
+
+
+def _routed_blocks():
+    """Blocks whose pieces take routes that _blocks() does not reach: a
+    1.5 kb deletion and a 2 kb insertion, each leaving a skewed piece past
+    the tiers' ends-free envelope (the short side placed inside the long
+    one, the middle on the tiers; both directions), and a clean 223 bp
+    deletion, whose piece t2 holds only at its band's edge with a banded
+    score above 3x the certificate: a tier reject, escalated."""
+    rng = np.random.default_rng(11)
+    t = random_dna(rng, 7000)
+    jobs = [(mutate(rng, t[:3000], 0.02) + mutate(rng, t[4500:], 0.02), t,
+             None)]
+    t = random_dna(rng, 6000)
+    jobs.append((mutate(rng, t[:3000], 0.02) + random_dna(rng, 2000)
+                 + mutate(rng, t[3000:], 0.02), t, None))
+    t = random_dna(rng, 5000)
+    jobs.append((t[:2500] + t[2723:], t, None))
+    return jobs
+
+
+def test_segmented_engine_placed_and_escalated_routes(monkeypatch):
+    """Tiers t1-t2 on both sides, as above, on _routed_blocks(): the
+    placed middles and the tier reject give the reference's CIGARs and
+    stats, and each route is taken (placements found, pieces
+    escalated)."""
+    placed = []
+    place = port_segmented._place_short
+
+    def spy(*args, **kwargs):
+        placed.append(place(*args, **kwargs))
+        return placed[-1]
+
+    monkeypatch.setattr(port_segmented, "_place_short", spy)
+    jobs = _routed_blocks()
+    ref_solver = _ref_solver(PATCH, n_tiers=2)
+    ref = _ref_engine(PATCH, solver=ref_solver)
+    port = SegmentedEngine(
+        PATCH, ExactWfaEngine.from_reference(ref.exact, CPU), CPU,
+        solver=wfa_seg.TieredSegmentSolver.from_reference(ref_solver, CPU))
+    got_ref = ref.align_batch(jobs)
+    got = port.align_batch(jobs)
+    assert got == got_ref
+    assert all(ops is not None for ops in got)
+    assert port.inversions == ref.inversions
+    assert port.stats == ref.stats
+    assert sum(off is not None for off in placed) >= 2
+    assert port.stats["escalated"] > 0
 
 
 @pytest.fixture(autouse=True)

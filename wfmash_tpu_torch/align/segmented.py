@@ -29,11 +29,14 @@ was its default path). WFMASH_TPU_SEGMENTED=0 restores exact biWFA.
 
 from __future__ import annotations
 
-import os
+import sys
+import threading
 
 import numpy as np
 
-from .wfa_np import Penalties
+from ..utils import perf
+from . import cigar
+from .wfa_np import EndsFree, Penalties, score_cigar
 from .wfa_seg import TieredSegmentSolver
 
 # 2-bit base codes; anything else (N etc.) invalidates overlapping k-mers
@@ -513,11 +516,38 @@ def _rev_try_host(rq, st, p, budget):
     return rops
 
 
+class _Batch:
+    """One align_batch call's working state, handed from phase to phase.
+
+    Job lists hold (job_index, piece_index, q, t, ends_free); placed_jobs
+    hold (job_index, piece_index, mid_q, mid_t, pre, post), pre and post
+    being the flank gap runs. plans[ji] is job ji's list of piece CIGARs
+    ([None] while a job taken whole is unsolved)."""
+
+    def __init__(self, jobs, stream):
+        self.jobs = jobs
+        self.plans: list = [None] * len(jobs)
+        self.seg_jobs: list = []      # on the tier stream
+        self.exact_jobs: list = []    # whole blocks and oversize pieces
+        self.placed_jobs: list = []   # structural-gap middles
+        self.escal_jobs: list = []    # tier rejects
+        self.bounds_of: dict = {}     # ji -> (bounds_q, bounds_t)
+        self.stream = stream
+        self.mids: list = []          # the placed middles' tier results
+        self.mids_unc: list = []
+        self.device_error = None
+        self.device_thread = None
+
+
 class SegmentedEngine:
     """Engine wrapper: large blocks go anchored+segmented, everything
     else (small blocks, ends-free patch jobs, escalations) delegates to
-    the wrapped exact engine. API-compatible with JaxWfaEngine /
-    HostWfaEngine (align / align_batch)."""
+    the wrapped exact engine. API-compatible with ExactWfaEngine /
+    HostWfaEngine (align / align_batch).
+
+    One route: the tiers take small blocks, boundary patches and
+    pieces; tier rejects and whatever no tier's envelope holds go to the
+    ExactWfaEngine, whose recursion leaves land back in the same tiers."""
 
     def __init__(self, penalties: Penalties, exact_engine, device,
                  seg_target: int = 256, min_block: int = 600, solver=None):
@@ -526,28 +556,18 @@ class SegmentedEngine:
         self.seg_target = seg_target
         self.min_block = min_block
         self.solver = solver or TieredSegmentSolver(penalties, device)
-        # the exact engine's leaf batching runs on the same tiers
-        if hasattr(exact_engine, "seg_solver"):
-            exact_engine.seg_solver = self.solver
-        # under segmentation the exact path only sees leftovers (oversize
-        # gaps, unanchorable blocks). The tiers accept everything
-        # <= ~2 kb, so 2-8 kb leftovers go through the exact sweep
-        # recursion whose own leaves land back in the tiers; the host
-        # only sees what nothing else can take. WFMASH_TPU_HOST_LEN
-        # overrides.
-        if hasattr(exact_engine, "HOST_LEN"):
-            exact_engine.HOST_LEN = int(os.environ.get(
-                "WFMASH_TPU_HOST_LEN", "1900"))
+        # the exact engine's leaf batching runs on the same tiers. Under
+        # segmentation it only sees leftovers (oversize gaps, unanchorable
+        # blocks): the tiers accept everything <= ~2 kb, so 2-8 kb
+        # leftovers go through its sweep recursion, and it takes banded
+        # leaf results as the pieces are taken (fidelity-ledger
+        # divergence)
+        exact_engine.seg_solver = self.solver
+        exact_engine.HOST_LEN = 1900
+        exact_engine.banded_leaves = True
         self.stats = {"segments": 0, "escalated": 0, "exact_blocks": 0,
                       "inversions": 0, "banded": 0}
-        # accept banded (uncertified) piece results for divergent pieces
-        # (fidelity-ledger divergence; WFMASH_TPU_EXACT_PIECES=1 forces
-        # exact-engine escalation instead)
-        self.banded_pieces = os.environ.get(
-            "WFMASH_TPU_EXACT_PIECES", "0") != "1"
-        if hasattr(exact_engine, "banded_leaves"):
-            exact_engine.banded_leaves = self.banded_pieces
-        self.threads = getattr(exact_engine, "threads", 1)
+        self.threads = exact_engine.threads
         self.min_inversion_length = 23   # align_parameters.hpp:70
         # strict-parity mode skips the rev-comp inversion try entirely
         # (the emitting code is dead in the reference binary)
@@ -564,518 +584,309 @@ class SegmentedEngine:
         envelope holds it) and `unanchorable` (a block with no anchor
         plan). `stats` keeps the reference's narrower count: the tier
         rejects of the planned segments."""
-        from ..utils import perf
-
         perf.add("align.escalated", n)
         perf.add(f"align.escalated.{cause}", n)
-
-    def _host_smalls_ok(self) -> bool:
-        """Whether boundary-patch / escalation / inversion-try jobs run
-        in one native host call each instead of on the kernel tiers.
-        The reference decides by a device round-trip probe (a remote
-        accelerator loses on dispatch latency); the port's card is
-        local, so the tiers keep them unless WFMASH_TPU_SEG_HOST_SMALL=1
-        asks for the host (results are bit-identical either way)."""
-        from ..native import get_wfa_lib
-
-        return (os.environ.get("WFMASH_TPU_SEG_HOST_SMALL", "auto") == "1"
-                and get_wfa_lib() is not None)
 
     def align(self, query: bytes, target: bytes, ends_free=None):
         return self.align_batch([(query, target, ends_free)])[0]
 
     def align_batch(self, jobs, bounds=None):
-        from ..utils import perf
-
+        """jobs: [(query, target, ends_free|None)] -> [ops | None].
+        bounds (per-job score bounds) is the engines' common signature;
+        the tiers take boundary patches without it."""
         before = dict(self.stats)
         with perf.span("align.engine") as eng:
-            out = self._align_batch(jobs, bounds, eng)
+            out = self._align_batch(jobs, eng)
         # these counters count as the reference's stats do; align.segments
-        # and align.escalated count wider (_align_batch, _escalate)
+        # and align.escalated count wider (_plan, _escalate)
         for key in ("exact_blocks", "banded", "inversions"):
             perf.add(f"align.{key}", self.stats[key] - before[key])
         return out
 
-    def _align_batch(self, jobs, bounds, eng):
-        """align_batch's phases, each a span under `eng`: planning, the
-        device thread's solve beside the host exact pass and the wait
-        for it, escalations, the inversion try, the stitching."""
-        from ..utils import perf
-        from .cigar import merge_adjacent, stitch_pieces
-
+    def _align_batch(self, jobs, eng):
+        """align_batch's phases, each a span under `eng` but the tiers'
+        results taken into the plans (_accept, _placed_middles), which
+        are eng's own time. self.inversions accumulates: the align loop
+        clears it before each record batch and drains it after, and the
+        patch stage's align() calls in between must keep the mains'."""
         with perf.span("align.plan"):
-            n = len(jobs)
-            plans: list = [None] * n      # per job: list of piece descriptors
-            exact_jobs: list = []         # (job_index, piece_index, q, t, ef)
-            seg_jobs: list = []           # (job_index, piece_index, q, t, ef)
-            placed_jobs: list = []        # (ji, pi, mid_q, mid_t, pre, post)
-            whole: set = set()            # ji whose piece 0 IS the whole job
-            bounds_of: dict = {}          # ji -> (bounds_q, bounds_t)
-            # NOTE: self.inversions accumulates (the align loop clears it
-            # before each record batch and drains it after — patch-stage
-            # align() calls in between must not wipe the mains' records)
-
-            # The device passes run in a BACKGROUND THREAD: tier-1 segment
-            # chunks dispatch WHILE the main thread is still planning later
-            # blocks (the stream fills as pieces classify), the deeper-tier
-            # cascade and placed-middle tiers follow, and the host exact
-            # engine overlaps it all — the native WFA releases the GIL, so
-            # planning, host tail and device wall overlap instead of
-            # alternating.
-            import threading as _threading
-
-            def score_ub(sq, st, ef):
-                if ef is not None:
-                    return None          # free spans invalidate the bound
-                return (self.p.mismatch * min(len(sq), len(st))
-                        + self.p.gap_cost(abs(len(sq) - len(st))))
-
-            stream = (self.solver.stream(certify=True)
-                      if hasattr(self.solver, "stream") else None)
-            got_m: list = []
-            unc_m: list = []
-            _dev_err: list = []
-            _mids_ready = _threading.Event()
-
-            def _solve_mids():
-                if placed_jobs:
-                    mids = [(q, t) for _, _, q, t, _, _ in placed_jobs]
-                    got_m[:] = self.solver.solve(
-                        mids,
-                        max_scores=[
-                            self.p.mismatch * min(len(q), len(t))
-                            + self.p.gap_cost(abs(len(q) - len(t)))
-                            for q, t in mids],
-                        uncertified=unc_m)
-
-            def _device_phase():
-                try:
-                    # the solver's spans on this thread are eng's children
-                    with perf.adopt(eng):
-                        if stream is not None:
-                            stream.run()
-                        else:
-                            unc[:] = [None] * len(seg_jobs)
-                            seg_stat[:] = [None] * len(seg_jobs)
-                            seg_ops[:] = self.solver.solve(
-                                [(sq, st, ef)
-                                 for _, _, sq, st, ef in seg_jobs],
-                                max_scores=[score_ub(sq, st, ef)
-                                            for _, _, sq, st, ef in seg_jobs],
-                                uncertified=unc, status=seg_stat)
-                        _mids_ready.wait()
-                        _solve_mids()
-                except BaseException as e:  # re-raised on join
-                    _dev_err.append(e)
-
-            def push_seg(ji, pi, sq, st, ef):
-                seg_jobs.append((ji, pi, sq, st, ef))
-                if stream is not None:
-                    stream.add((sq, st, ef), score_ub(sq, st, ef))
-
-            _dev_th = None
-            if stream is not None:
-                # start consuming before planning produces (stream mode)
-                _dev_th = _threading.Thread(target=_device_phase,
-                                            name="wfmash-device-phase")
-                _dev_th.start()
-
-            # phase 1: small blocks and explicit ends-free jobs (boundary
-            # patches) go to the device solver directly when they fit its
-            # envelope. With WFMASH_TPU_SEG_HOST_SMALL=1 the ends-free jobs
-            # route to one native host batch instead (_host_smalls_ok).
-            host_small = self._host_smalls_ok()
-            host_jobs: list = []          # (ji, pi, q, t, ef)
-            todo = []
-            for ji, (q, t, ef) in enumerate(jobs):
-                q, t = bytes(q), bytes(t)
-                if (ef is not None or len(q) < self.min_block
-                        or len(t) < self.min_block):
-                    plans[ji] = None
-                    whole.add(ji)
-                    if q and t and ef is not None and host_small:
-                        host_jobs.append((ji, 0, q, t, ef))
-                    elif q and t and self.solver.accepts(len(q), len(t), ef):
-                        push_seg(ji, 0, q, t, ef)
-                    else:
-                        exact_jobs.append((ji, 0, q, t, ef))
-                        self.stats["exact_blocks"] += 1
-                        self._escalate("oversize")
-                else:
-                    todo.append((ji, q, t))
-            # phase 2: per-block anchor planning (native C++ host path),
-            # fused with piece classification so planned pieces stream to
-            # the device thread as they appear. Plans against the CHEAP
-            # tier's envelope (512/256): re-anchoring an oversize span into
-            # ~256 bp tier-1 segments beats solving it whole on the deep
-            # tier; only unanchorable spans should reach t3.
-            for (ji, q, t) in todo:
-                # NB: must not shadow the align_batch `bounds` parameter —
-                # run_host_small reads it after this loop
-                pb = _plan_bounds(q, t, self.seg_target, 512, 256)
-                if pb is None:
-                    plans[ji] = None
-                    exact_jobs.append((ji, 0, q, t, None))
-                    self.stats["exact_blocks"] += 1
-                    self._escalate("unanchorable")
-                    continue
-                bounds_q, bounds_t = pb
-                bounds_of[ji] = (bounds_q, bounds_t)
-                pieces = []
-                for pi in range(len(bounds_q) - 1):
-                    sq = q[bounds_q[pi]:bounds_q[pi + 1]]
-                    st = t[bounds_t[pi]:bounds_t[pi + 1]]
-                    pieces.append(None)
-                    if (self.solver.accepts(len(sq), len(st)) or not sq
-                            or not st):
-                        push_seg(ji, pi, sq, st, None)
-                    else:
-                        # a piece with a multi-hundred-bp length skew is a
-                        # structural gap: end-to-end WFA would pay O(skew)
-                        # score levels just to emit the gap. Free both ends
-                        # of the LONGER side instead — the shorter side
-                        # aligns locally and the remainder comes out as
-                        # leading/trailing gap runs (still consuming both
-                        # sequences fully, so stitching stays replay-exact)
-                        ef = None
-                        skew = len(sq) - len(st)
-                        if abs(skew) > 400:
-                            from .wfa_np import EndsFree
-
-                            if skew > 0:
-                                ef = EndsFree(query_begin=skew, query_end=skew)
-                            else:
-                                ef = EndsFree(target_begin=-skew,
-                                              target_end=-skew)
-                        if ef is not None and self.solver.accepts(
-                                len(sq), len(st), ef):
-                            push_seg(ji, pi, sq, st, ef)
-                        elif ef is not None:
-                            # too big for the device ends-free envelope: an
-                            # unbounded host ends-free WFA on a multi-kb
-                            # piece costs seconds (the free spans seed the
-                            # whole band). Place the SHORT side inside the
-                            # long one by k-mer diagonal voting, emit the
-                            # flanks as plain gap runs, and align the middle
-                            # end-to-end (device tiers) — near-optimal and
-                            # replay-exact (ledgered with the segmented
-                            # mode's anchor-pinning divergence).
-                            skew = len(sq) - len(st)
-                            off = (_place_short(st, sq) if skew > 0
-                                   else _place_short(sq, st))
-                            if off is None:
-                                exact_jobs.append((ji, pi, sq, st, ef))
-                                self._escalate("oversize")
-                            elif skew > 0:
-                                placed_jobs.append(
-                                    (ji, pi, sq[off:off + len(st)], st,
-                                     [(off, "I")] if off else [],
-                                     [(skew - off, "I")] if skew - off
-                                     else []))
-                            else:
-                                placed_jobs.append(
-                                    (ji, pi, sq, st[off:off + len(sq)],
-                                     [(off, "D")] if off else [],
-                                     [(-skew - off, "D")] if -skew - off
-                                     else []))
-                        else:
-                            exact_jobs.append((ji, pi, sq, st, ef))
-                            self._escalate("oversize")
-                plans[ji] = pieces
-
-            # planning complete: every device-eligible piece of every block
-            # is in the stream (each with its trivial score upper bound —
-            # all-mismatch + length-difference gap — so garbage pieces stop
-            # sweeping at their bound instead of the tier smax); placed_jobs
-            # is final, so release the mids stage too
-            self.stats["segments"] += len(seg_jobs)
-            # align.segments: every piece planned and every job taken whole
-            perf.add("align.segments", len(seg_jobs) + len(placed_jobs)
-                     + len(exact_jobs) + len(host_jobs))
+            b = _Batch(jobs, self.solver.stream(certify=True))
+            # the device thread consumes the stream while planning fills it
+            b.device_thread = threading.Thread(
+                target=self._device_phase, args=(b, eng),
+                name="wfmash-device-phase")
+            b.device_thread.start()
+            self._plan(b)
         with perf.span("align.seg_solve"):
-            unc: list = []
-            seg_stat: list = []
-            seg_ops: list = []
-            if stream is not None:
-                stream.close()
-            _mids_ready.set()
-            if _dev_th is None:   # non-streaming solver: start the thread now
-                _dev_th = _threading.Thread(target=_device_phase,
-                                            name="wfmash-device-phase")
-                _dev_th.start()
+            self._solve(b)
+        self._accept(b)
+        self._placed_middles(b)
+        # tier rejects on the exact engine (a span apart from align.exact,
+        # the host pass beside the device)
+        with perf.span("align.escalate"):
+            self._run_exact(b, b.escal_jobs, allow_seg=False)
+        with perf.span("align.inversion"):
+            if self.detect_inversions:
+                self._detect_inversions(b, self._inversion_candidates(b))
+        with perf.span("align.assemble"):
+            return self._assemble(b)
 
-            # exact-engine passes. Escalations already failed the segment
-            # kernel, so the exact engine must not re-try them there
-            # (allow_seg=False); whole-block fallbacks and oversize pieces
-            # may still batch their recursion leaves through it.
-            def run_exact(batch, allow_seg):
-                if not batch:
-                    return
-                try:
-                    got = self.exact.align_batch(
-                        [(q, t, ef) for _, _, q, t, ef in batch],
-                        allow_seg=allow_seg)
-                except TypeError:      # engines without the keyword
-                    got = self.exact.align_batch(
-                        [(q, t, ef) for _, _, q, t, ef in batch])
-                for (ji, pi, _, _, _), ops in zip(batch, got):
-                    if plans[ji] is None:
-                        plans[ji] = [ops]          # whole-block result
-                    else:
-                        plans[ji][pi] = ops
+    def _plan(self, b):
+        """Small blocks and ends-free jobs (boundary patches) go to the
+        tiers whole when an envelope holds them, else to the exact engine.
+        Then each larger block gets an anchor plan against the cheap
+        tier's envelope (512/256: re-anchoring an oversize span into
+        ~256 bp tier-1 pieces beats solving it whole on a deep tier), and
+        its pieces are classified as they are cut, so they reach the
+        device thread while later blocks still plan."""
+        todo = []
+        for ji, (q, t, ef) in enumerate(b.jobs):
+            q, t = bytes(q), bytes(t)
+            if (ef is None and len(q) >= self.min_block
+                    and len(t) >= self.min_block):
+                todo.append((ji, q, t))
+                continue
+            b.plans[ji] = [None]
+            if q and t and self.solver.accepts(len(q), len(t), ef):
+                self._push_seg(b, ji, 0, q, t, ef)
+            else:
+                b.exact_jobs.append((ji, 0, q, t, ef))
+                self.stats["exact_blocks"] += 1
+                self._escalate("oversize")
+        for ji, q, t in todo:
+            pb = _plan_bounds(q, t, self.seg_target, 512, 256)
+            if pb is None:
+                b.plans[ji] = [None]
+                b.exact_jobs.append((ji, 0, q, t, None))
+                self.stats["exact_blocks"] += 1
+                self._escalate("unanchorable")
+                continue
+            bq, bt = pb
+            b.bounds_of[ji] = (bq, bt)
+            b.plans[ji] = [None] * (len(bq) - 1)
+            for pi in range(len(bq) - 1):
+                self._classify(b, ji, pi, q[bq[pi]:bq[pi + 1]],
+                               t[bt[pi]:bt[pi + 1]])
+        self.stats["segments"] += len(b.seg_jobs)
+        # align.segments: every piece planned and every job taken whole
+        perf.add("align.segments", len(b.seg_jobs) + len(b.placed_jobs)
+                 + len(b.exact_jobs))
 
-            def run_host_small():
-                """One native call for the routed ends-free jobs; per-job
-                score bounds (the eroded candidate a patch replaces) prune
-                the native wavefronts — a valid bound can never reject, so
-                results are unchanged (see wfa.cpp known-bound pruning)."""
-                if not host_jobs:
-                    return
-                from ..native import WfaMemoryBudget, wfa_align_batch_native
+    def _classify(self, b, ji, pi, sq, st):
+        """Routes one planned piece: onto the tier stream when an envelope
+        holds it end to end. A piece with a multi-hundred-bp length skew
+        is a structural gap, where an end-to-end WFA would pay O(skew)
+        score levels just to emit the gap: both ends of its LONGER side
+        go free instead (the shorter side aligns locally, the rest comes
+        out as leading/trailing gap runs, and stitching stays replay-
+        exact). Too big for the tiers' ends-free envelope (an unbounded
+        host ends-free WFA on a multi-kb piece costs seconds), the SHORT
+        side is placed inside the long one by k-mer diagonal voting, the
+        flanks become plain gap runs and the middle aligns end to end on
+        the tiers: near-optimal and replay-exact (ledgered with the
+        segmented mode's anchor-pinning divergence)."""
+        if self.solver.accepts(len(sq), len(st)) or not sq or not st:
+            self._push_seg(b, ji, pi, sq, st, None)
+            return
+        skew = len(sq) - len(st)
+        if abs(skew) <= 400:
+            b.exact_jobs.append((ji, pi, sq, st, None))
+            self._escalate("oversize")
+            return
+        ef = (EndsFree(query_begin=skew, query_end=skew) if skew > 0 else
+              EndsFree(target_begin=-skew, target_end=-skew))
+        if self.solver.accepts(len(sq), len(st), ef):
+            self._push_seg(b, ji, pi, sq, st, ef)
+            return
+        off = _place_short(st, sq) if skew > 0 else _place_short(sq, st)
+        if off is None:
+            b.exact_jobs.append((ji, pi, sq, st, ef))
+            self._escalate("oversize")
+        elif skew > 0:
+            b.placed_jobs.append(
+                (ji, pi, sq[off:off + len(st)], st,
+                 [(off, "I")] if off else [],
+                 [(skew - off, "I")] if skew - off else []))
+        else:
+            b.placed_jobs.append(
+                (ji, pi, sq, st[off:off + len(sq)],
+                 [(off, "D")] if off else [],
+                 [(-skew - off, "D")] if -skew - off else []))
 
-                pieces = [(q, t) for _, _, q, t, _ in host_jobs]
-                spans = [(ef.target_begin, ef.target_end,
-                          ef.query_begin, ef.query_end)
-                         for *_, ef in host_jobs]
-                caps = None
-                if bounds is not None:
-                    caps = [bounds[ji] if ji < len(bounds) else None
-                            for ji, *_ in host_jobs]
-                    if all(c is None for c in caps):
-                        caps = None
-                    else:
-                        caps = [-1 if c is None else c for c in caps]
-                solved = None
-                try:
-                    solved = wfa_align_batch_native(
-                        pieces, self.p, max_scores=caps, ends_free=spans)
-                except WfaMemoryBudget:   # pragma: no cover - giant patch
-                    solved = None
-                if solved is None:
-                    run_exact(host_jobs, True)
-                    return
-                leftovers = []
-                for (ji, pi, q, t, ef), (_, ops) in zip(host_jobs, solved):
-                    if ops is None:       # pragma: no cover - native refusal
-                        leftovers.append((ji, pi, q, t, ef))
-                    elif plans[ji] is None:
-                        plans[ji] = [ops]
-                    else:
-                        plans[ji][pi] = ops
-                run_exact(leftovers, True)
+    def _score_ub(self, sq, st, ef=None):
+        """A job's trivial score bound, all mismatches plus one gap for
+        the length difference, so a garbage piece stops sweeping at it
+        instead of at the tier's smax; None for an ends-free job, whose
+        free spans void it."""
+        if ef is not None:
+            return None
+        return (self.p.mismatch * min(len(sq), len(st))
+                + self.p.gap_cost(abs(len(sq) - len(st))))
 
-            # host exact pass, concurrent with the device thread
-            try:
-                with perf.span("align.exact"):
-                    run_host_small()
-                    run_exact(exact_jobs, True)
-            finally:
-                # what the device thread has left once the host is done
-                with perf.span("align.device_wait"):
-                    _dev_th.join()
-            if _dev_err:
-                raise _dev_err[0]
-            if stream is not None:
-                seg_ops[:] = stream.res
-                seg_stat[:] = stream.st
-                unc[:] = stream.unc
-        self._escal_census = {}
-        for k, ops in enumerate(seg_ops):
-            if ops is None and (unc[k] is None or not self.banded_pieces):
-                s = seg_stat[k]
-                code = s[0] if isinstance(s, tuple) else s
-                j = seg_jobs[k]
-                sz = 1 << max(6, (max(len(j[2]), len(j[3])) - 1)
-                              .bit_length())
-                key = (code, sz, j[4] is not None)
-                self._escal_census[key] = self._escal_census.get(
-                    key, 0) + 1
-        escal_jobs = []
+    def _push_seg(self, b, ji, pi, sq, st, ef):
+        b.seg_jobs.append((ji, pi, sq, st, ef))
+        b.stream.add((sq, st, ef), self._score_ub(sq, st, ef))
+
+    def _device_phase(self, b, eng):
+        """The device thread: tier-1 chunks launch while the main thread
+        still plans, the deeper tiers follow once the stream closes, then
+        the placed middles (planning is over once run() returns). The
+        native WFA releases the GIL, so planning, the host exact pass and
+        the device overlap instead of alternating."""
+        try:
+            # the solver's spans on this thread are eng's children
+            with perf.adopt(eng):
+                b.stream.run()
+                if b.placed_jobs:
+                    mids = [(q, t) for _, _, q, t, _, _ in b.placed_jobs]
+                    b.mids = self.solver.solve(
+                        mids, max_scores=[self._score_ub(q, t)
+                                          for q, t in mids],
+                        uncertified=b.mids_unc)
+        except BaseException as e:  # re-raised on join
+            b.device_error = e
+
+    def _solve(self, b):
+        """Closes the stream, runs the host exact pass beside the device
+        thread (align.exact), then waits for the thread
+        (align.device_wait)."""
+        b.stream.close()
+        try:
+            with perf.span("align.exact"):
+                self._run_exact(b, b.exact_jobs, allow_seg=True)
+        finally:
+            with perf.span("align.device_wait"):
+                b.device_thread.join()
+        if b.device_error is not None:
+            raise b.device_error
+
+    def _run_exact(self, b, batch, allow_seg):
+        """Solves batch on the exact engine into the plans. Tier rejects
+        already failed the tiers and must not go back to them
+        (allow_seg=False); whole blocks and oversize pieces may still
+        batch their recursion leaves there."""
+        if not batch:
+            return
+        got = self.exact.align_batch(
+            [(q, t, ef) for _, _, q, t, ef in batch], allow_seg=allow_seg)
+        for (ji, pi, _, _, _), ops in zip(batch, got):
+            b.plans[ji][pi] = ops
+
+    @staticmethod
+    def _banded(unc):
+        """The CIGAR of an uncertified tier result, (ops, score, cert) of
+        a band-edge contact above the certificate on a divergent piece:
+        replayable and score-valid, just not provably optimal. Taken ONLY
+        when the score is under 3x the certificate bound; far above it
+        the true path left the band (repeat diagonal shifts give garbage
+        all-indel in-band paths). Same trade wfmash's historical
+        wflambda + WFmash pruning made."""
+        if unc is None:
+            return None
+        ops, score, cert = unc
+        return ops if score < 3 * max(cert, 1) else None
+
+    def _accept(self, b):
+        """The tier stream's results into the plans, banded ones taken
+        (_banded) and junk-level pieces given the diagonal path; the rest
+        go on b.escal_jobs."""
+        res, status, unc = b.stream.res, b.stream.st, b.stream.unc
         for k, ((ji, pi, sq, st, ef), ops) in enumerate(
-                zip(seg_jobs, seg_ops)):
-            if ops is None and unc[k] is not None and self.banded_pieces:
-                # band-edge contact above the certificate on a divergent
-                # piece: the banded CIGAR is replayable and score-valid,
-                # just not provably optimal. Accept it ONLY when the
-                # score is within 3x the certificate bound — far above
-                # it means the true path left the band entirely (repeat
-                # diagonal shifts produce garbage all-indel in-band
-                # paths); those escalate to the exact engine. Same trade
-                # wfmash's historical wflambda + WFmash pruning made;
-                # WFMASH_TPU_EXACT_PIECES=1 forces exact escalation.
-                u_ops, u_score, u_cert = unc[k]
-                if u_score < 3 * max(u_cert, 1):
-                    ops = u_ops
-                    self.stats["banded"] += 1
-            if (ops is None and self.banded_pieces and ef is None
-                    and max(len(sq), len(st)) <= 2047):
-                s = seg_stat[k]
-                if (s[0] if isinstance(s, tuple) else s) == "scorecap":
-                    # junk-level piece: every banded sweep ran out of
-                    # score budget without finding a path within the
-                    # trivial all-mismatch bound — exact alignment of
-                    # near-random sequence would buy a few percent of
-                    # score for seconds of host time. Emit the diagonal
-                    # path instead (replayable; ledgered with the
-                    # banded-piece divergence).
-                    ops = _diag_ops(sq, st)
-                    self.stats["banded"] += 1
+                zip(b.seg_jobs, res)):
             if ops is None:
-                escal_jobs.append((ji, pi, sq, st, ef))
+                ops = self._banded(unc[k])
+                if ops is not None:
+                    self.stats["banded"] += 1
+            if (ops is None and ef is None and max(len(sq), len(st)) <= 2047
+                    and status[k][0] == "scorecap"):
+                # junk-level piece: every banded sweep ran out of score
+                # budget without finding a path within the trivial
+                # all-mismatch bound — exact alignment of near-random
+                # sequence would buy a few percent of score for seconds of
+                # host time. The diagonal path instead (replayable;
+                # ledgered with the banded-piece divergence).
+                ops = _diag_ops(sq, st)
+                self.stats["banded"] += 1
+            if ops is None:
+                b.escal_jobs.append((ji, pi, sq, st, ef))
                 self.stats["escalated"] += 1
                 self._escalate("tier_reject")
-            elif plans[ji] is None:
-                plans[ji] = [ops]              # whole-block device result
             else:
-                plans[ji][pi] = ops
+                b.plans[ji][pi] = ops
 
-        # placed structural-gap middles (device results from the
-        # background thread): accept banded, host-solve failures, wrap
-        # with the flank gap runs; tier failures solve the MIDDLE on
-        # the host (bounded — never the ends-free monster)
-        if placed_jobs:
-            mids = [(q, t) for _, _, q, t, _, _ in placed_jobs]
-            if self.banded_pieces:
-                for k in range(len(got_m)):
-                    if got_m[k] is None and unc_m[k] is not None:
-                        u_ops, u_score, u_cert = unc_m[k]
-                        if u_score < 3 * max(u_cert, 1):
-                            got_m[k] = u_ops
-                            self.stats["banded"] += 1
-            host_mid = [k for k, o in enumerate(got_m) if o is None]
-            if host_mid:
-                self._escalate("tier_reject", len(host_mid))
-                with perf.span("align.escalate"):
-                    try:
-                        got_h = self.exact.align_batch(
-                            [(mids[k][0], mids[k][1], None)
-                             for k in host_mid], allow_seg=False)
-                    except TypeError:
-                        got_h = self.exact.align_batch(
-                            [(mids[k][0], mids[k][1], None)
-                             for k in host_mid])
-                for k, o in zip(host_mid, got_h):
-                    got_m[k] = o
-            for (ji, pi, q, t, pre, post), ops in zip(placed_jobs, got_m):
-                wrapped = merge_adjacent(pre, list(ops)) if pre else \
-                    list(ops)
-                wrapped = merge_adjacent(wrapped, post) if post else \
-                    wrapped
-                plans[ji][pi] = wrapped
+    def _placed_middles(self, b):
+        """The placed structural-gap middles' tier results into the plans,
+        banded ones taken, tier rejects solved on the exact engine (the
+        bounded middle, never the ends-free piece), each wrapped in its
+        flank gap runs."""
+        if not b.placed_jobs:
+            return
+        got = b.mids
+        for k, ops in enumerate(got):
+            if ops is None:
+                got[k] = self._banded(b.mids_unc[k])
+                if got[k] is not None:
+                    self.stats["banded"] += 1
+        host = [k for k, ops in enumerate(got) if ops is None]
+        if host:
+            self._escalate("tier_reject", len(host))
+            with perf.span("align.escalate"):
+                solved = self.exact.align_batch(
+                    [(b.placed_jobs[k][2], b.placed_jobs[k][3], None)
+                     for k in host], allow_seg=False)
+            for k, ops in zip(host, solved):
+                got[k] = ops
+        for (ji, pi, _, _, pre, post), ops in zip(b.placed_jobs, got):
+            wrapped = (cigar.merge_adjacent(pre, list(ops)) if pre
+                       else list(ops))
+            b.plans[ji][pi] = (cigar.merge_adjacent(wrapped, post) if post
+                               else wrapped)
 
-        # the escalation pass: tier failures on the exact engine (its
-        # span apart from align.exact, the host pass beside the device)
-        with perf.span("align.escalate"):
-            rest = escal_jobs
-            if host_small and escal_jobs:
-                # tier failures are end-to-end pieces with a trivial valid
-                # bound (all-mismatch + skew gap): one capped native call
-                # beats per-piece exact sweeps through a high-latency link
-                from ..native import WfaMemoryBudget, wfa_align_batch_native
+    def _inversion_candidates(self, b):
+        """Pieces for the rev-comp try (wflign_patch.cpp:405-538): every
+        DIVERGENT piece of a planned block, the tier rejects and each
+        piece whose forward score is at least a quarter of its
+        all-mismatch bill. Score-based, not routing-based: the deeper
+        tiers solve many divergent pieces forward on the device. The bar
+        sits below an inverted region's cheapest forward treatment,
+        skipping it with two gap runs (~2*gap_cost(len), ~2 a base with
+        e2=1), not near the mismatch bill."""
+        cands = [e for e in b.escal_jobs if e[0] in b.bounds_of]
+        seen = {(e[0], e[1]) for e in b.escal_jobs}
+        for ji, pi, sq, st, ef in b.seg_jobs + b.exact_jobs:
+            if (ji, pi) in seen or ji not in b.bounds_of or ef is not None:
+                continue
+            ops = b.plans[ji][pi]
+            if ops is None:
+                continue
+            bill = self.p.mismatch * min(len(sq), len(st))
+            if 4 * score_cigar(ops, self.p) >= bill:
+                cands.append((ji, pi, sq, st, ef))
+        return cands
 
-                # routing bit-identity: pieces above the
-                # exact engine's HOST_LEN go through run_exact in BOTH
-                # SEG_HOST_SMALL configs — a native end-to-end solve here
-                # could differ byte-wise from the exact engine's crossing-
-                # payload split recursion on the same (score-equal) piece.
-                hl = int(getattr(self.exact, "HOST_LEN", 1900))
+    def _assemble(self, b):
+        """Each job's pieces stitched into one CIGAR; None, with a
+        warning, for a job with a piece left unsolved."""
+        results = []
+        n_pieces = n_ops = 0
+        for ji, pieces in enumerate(b.plans):
+            holes = [pi for pi, ops in enumerate(pieces) if ops is None]
+            if holes:
+                print(f"[wfmash::align] WARNING: block {ji} "
+                      f"(q={len(b.jobs[ji][0])} t={len(b.jobs[ji][1])}) "
+                      f"unresolved: plan={len(pieces)} holes={holes[:8]}",
+                      file=sys.stderr)
+                results.append(None)
+                continue
+            ops = cigar.stitch_pieces(pieces)
+            n_pieces += len(pieces)
+            n_ops += len(ops)
+            results.append(ops)
+        perf.add("align.assemble.pieces", n_pieces)
+        perf.add("align.assemble.ops", n_ops)
+        return results
 
-                def _nat_ok(e):
-                    return e[4] is None and max(len(e[2]), len(e[3])) <= hl
-
-                nat = [e for e in escal_jobs if _nat_ok(e)]
-                rest = [e for e in escal_jobs if not _nat_ok(e)]
-                if nat:
-                    solved = None
-                    try:
-                        solved = wfa_align_batch_native(
-                            [(sq, st) for _, _, sq, st, _ in nat], self.p,
-                            max_scores=[score_ub(sq, st, None)
-                                        for _, _, sq, st, _ in nat])
-                    except WfaMemoryBudget:   # pragma: no cover - giant piece
-                        solved = None
-                    if solved is None:
-                        rest = escal_jobs
-                    else:
-                        for (ji, pi, sq, st, ef), (_, ops) in zip(nat, solved):
-                            if ops is None:   # pragma: no cover
-                                rest.append((ji, pi, sq, st, ef))
-                            elif plans[ji] is None:
-                                plans[ji] = [ops]
-                            else:
-                                plans[ji][pi] = ops
-            run_exact(rest, False)
-        with perf.span("align.inversion"):
-            # patch-region inversion try (wflign_patch.cpp:405-538): every
-            # divergent piece — escalated segments and oversize inter-anchor
-            # gaps — gets a reverse-complement attempt with a 0.9x score
-            # budget; completions are recorded for extra iv:Z:true PAF rows
-            if self.detect_inversions:
-                # candidate pieces for the rev-comp try: anything DIVERGENT —
-                # forward score >= 25% of a per-base mismatch bill (an
-                # inverted region scores ~75% mismatches forward). Score-
-                # based, not routing-based: the deeper tiers solve many
-                # divergent pieces forward on device, so "escalated" alone
-                # does not identify them.
-                from .wfa_np import score_cigar as _sc
-
-                div_cands = list(escal_jobs)
-                seen = {(e[0], e[1]) for e in escal_jobs}
-                for (ji, pi, sq, st, ef) in (seg_jobs + exact_jobs):
-                    if ((ji, pi) in seen or ji not in bounds_of
-                            or ef is not None):
-                        continue
-                    pieces = plans[ji]
-                    ops = pieces[pi] if pieces is not None else None
-                    if ops is None:
-                        continue
-                    # candidate bar: forward score >= a quarter of the
-                    # all-mismatch bill. An inverted region's cheapest
-                    # forward treatment is skipping it with two gap runs
-                    # (~2*gap_cost(len) ~ 2 per base with e2=1), so the bar
-                    # must sit below that, not near the mismatch bill.
-                    bill = self.p.mismatch * min(len(sq), len(st))
-                    if 4 * _sc(ops, self.p) >= bill:
-                        div_cands.append((ji, pi, sq, st, ef))
-                self._detect_inversions(
-                    plans, bounds_of,
-                    [e for e in div_cands if e[0] in bounds_of])
-        with perf.span("align.assemble"):
-            if n >= 16:
-                import sys
-
-                print(f"[wfmash::align] segmented batch: {n} blocks -> "
-                      f"{len(seg_jobs)} segments, {len(escal_jobs)} "
-                      f"escalated, "
-                      f"{len(exact_jobs)} exact-path jobs, "
-                      f"{self.stats['banded']} banded; escal census: "
-                      f"{sorted(self._escal_census.items())}", file=sys.stderr)
-
-            results = []
-            n_pieces = n_ops = 0
-            for ji in range(n):
-                pieces = plans[ji]
-                if pieces is None or any(p is None for p in pieces):
-                    import sys as _sys
-
-                    holes = ([] if pieces is None else
-                             [pi for pi, p in enumerate(pieces) if p is None])
-                    print(f"[wfmash::align] WARNING: block {ji} "
-                          f"(q={len(jobs[ji][0])} t={len(jobs[ji][1])}) "
-                          "unresolved: plan="
-                          f"{'none' if pieces is None else len(pieces)} "
-                          f"holes={holes[:8]}", file=_sys.stderr)
-                    results.append(None)
-                    continue
-                ops = stitch_pieces(pieces)
-                n_pieces += len(pieces)
-                n_ops += len(ops)
-                results.append(ops)
-            perf.add("align.assemble.pieces", n_pieces)
-            perf.add("align.assemble.ops", n_ops)
-            return results
-
-    def _detect_inversions(self, plans, bounds_of, candidates):
+    def _detect_inversions(self, b, candidates):
         """Reverse-complement try on divergent pieces (reference:
         wflign_patch.cpp:405-538 — the forward alignment stays in the
         main CIGAR; a rev-comp alignment that completes within
@@ -1084,117 +895,94 @@ class SegmentedEngine:
         import math
 
         from ..sketch.kmers import reverse_complement
-        from .wfa_np import score_cigar
 
         mil = self.min_inversion_length
-        cands = []
-        for (ji, pi, sq, st, _ef) in candidates:
-            if (_ef is not None or len(sq) < mil or len(st) < mil
-                    or plans[ji] is None or plans[ji][pi] is None):
-                continue
-            cands.append((ji, pi, sq, st))
+        cands = [(ji, pi, sq, st) for ji, pi, sq, st, ef in candidates
+                 if ef is None and len(sq) >= mil and len(st) >= mil
+                 and b.plans[ji][pi] is not None]
         if not cands:
             return
         rev_jobs = [(bytes(reverse_complement(bytearray(sq))), st)
                     for _, _, sq, st in cands]
-        # certify=False: a banded rev-comp CIGAR within budget is a real
-        # alignment within budget (sound evidence of the inversion);
-        # optimality is irrelevant for the try, so no band certificate
-        # and no host retry of uncertified results. The 0.9x forward
-        # budget rides into the kernel as a per-job score cap
-        # (max_scores): garbage rev tries give up AT the budget instead
-        # of sweeping every tier to smax, and the resulting "scorecap"
-        # PROVES rev_score > budget — no host retry. Host fallback
-        # remains only for envelope rejects (fork-pooled, bounded).
         budgets = [int(math.ceil(
-            score_cigar(plans[ji][pi], self.p) * 0.9))
+            score_cigar(b.plans[ji][pi], self.p) * 0.9))
             for (ji, pi, _, _) in cands]
-        native_ok = False
-        try:
-            from ..native import get_wfa_lib
-
-            native_ok = get_wfa_lib() is not None
-        except Exception:   # pragma: no cover - import failure
-            native_ok = False
-        if native_ok:
-            # One capped native call for ALL tries, regardless of the
-            # link policy: each try either completes within its budget
-            # (exact evidence, recorded below) or is PROVEN over it (the
-            # cap rejection). A device pre-screen cannot prune this —
-            # banded failures prove nothing about out-of-band paths and
-            # banded successes are non-canonical co-optimals — so with a
-            # native lib the screen is pure overhead (and emitting the
-            # native optimum keeps every routing config byte-identical).
-            from ..native import WfaMemoryBudget, wfa_align_batch_native
-
-            solved = None
-            try:
-                solved = wfa_align_batch_native(rev_jobs, self.p,
-                                                max_scores=budgets)
-            except WfaMemoryBudget:   # pragma: no cover - giant piece
-                solved = None
-            if solved is not None:
-                for (ji, pi, sq, st), (_, rops), budget in zip(
-                        cands, solved, budgets):
-                    if rops is None or score_cigar(rops, self.p) > budget:
-                        continue
-                    bq, bt = bounds_of[ji]
-                    self.inversions.append(dict(
-                        ji=ji, qa=bq[pi], qb=bq[pi + 1], ta=bt[pi],
-                        tb=bt[pi + 1], ops=rops))
-                    self.stats["inversions"] += 1
-                return
-        stat: list = []
-        rev_got = self.solver.solve(rev_jobs, certify=False, status=stat,
-                                    max_scores=budgets)
-
-        def needs_host(k):
-            # ONLY a within-budget result is conclusive. A banded sweep
-            # that hits the score cap proves nothing about OUT-OF-BAND
-            # rev paths within budget (gap ladders can leave any fixed
-            # band for less than these budgets), and a banded CIGAR over
-            # budget may shadow an in-band optimum under it — both retry
-            # exact-capped, matching the native route's (and the
-            # reference's) semantics, wflign_patch.cpp:405-538. (The
-            # former shortcut "scorecap proves over-budget" missed 122
-            # of 242 LPA inversions.)
-            return not (rev_got[k] is not None
-                        and score_cigar(rev_got[k], self.p) <= budgets[k])
-
-        fb = [k for k in range(len(rev_got)) if needs_host(k)]
-        if fb:
-            got = None
-            from ..native import WfaMemoryBudget, wfa_align_batch_native
-
-            try:
-                solved = wfa_align_batch_native(
-                    [rev_jobs[k] for k in fb], self.p,
-                    max_scores=[budgets[k] for k in fb])
-                if solved is not None:
-                    got = [ops for _, ops in solved]
-            except WfaMemoryBudget:   # pragma: no cover - giant piece
-                got = None
-            fb_args = [(rev_jobs[k][0], rev_jobs[k][1], self.p,
-                        budgets[k]) for k in fb]
-            if got is None and self.threads > 1 and len(fb) >= 8:
-                from ..utils.hostpool import get_pool
-
-                pool = get_pool(self.threads)
-                if pool is not None:
-                    got = pool.starmap(
-                        _rev_try_host, fb_args,
-                        chunksize=max(1, len(fb) // (4 * self.threads)))
-            if got is None:
-                got = [_rev_try_host(*a) for a in fb_args]
-            for k, rops in zip(fb, got):
-                rev_got[k] = rops
+        rev_got = self._rev_native(rev_jobs, budgets)
+        if rev_got is None:
+            rev_got = self._rev_tiers(rev_jobs, budgets)
         for (ji, pi, sq, st), rops, budget in zip(cands, rev_got, budgets):
-            if rops is None:
+            if rops is None or score_cigar(rops, self.p) > budget:
                 continue
-            if score_cigar(rops, self.p) > budget:
-                continue
-            bq, bt = bounds_of[ji]
+            bq, bt = b.bounds_of[ji]
             self.inversions.append(dict(
                 ji=ji, qa=bq[pi], qb=bq[pi + 1], ta=bt[pi],
                 tb=bt[pi + 1], ops=rops))
             self.stats["inversions"] += 1
+
+    def _rev_native(self, rev_jobs, budgets):
+        """One capped native call for ALL tries: each either completes
+        within its budget (exact evidence) or is PROVEN over it (the cap
+        rejection). A device pre-screen cannot prune this — banded
+        failures prove nothing about out-of-band paths and banded
+        successes are non-canonical co-optimals — and the native optimum
+        is the reference's answer. None without the native library."""
+        from ..native import (WfaMemoryBudget, get_wfa_lib,
+                              wfa_align_batch_native)
+
+        try:
+            if get_wfa_lib() is None:
+                return None
+        except Exception:   # pragma: no cover - import failure
+            return None
+        try:
+            solved = wfa_align_batch_native(rev_jobs, self.p,
+                                            max_scores=budgets)
+        except WfaMemoryBudget:   # pragma: no cover - giant piece
+            return None
+        return None if solved is None else [ops for _, ops in solved]
+
+    def _rev_tiers(self, rev_jobs, budgets):
+        """The tries on the tiers, without the native library. certify=
+        False: a banded rev-comp CIGAR within budget is a real alignment
+        within budget (sound evidence of the inversion), and the 0.9x
+        forward budget rides into the kernel as a per-job score cap. Only
+        a within-budget result is conclusive: a banded sweep at the score
+        cap proves nothing about OUT-OF-BAND rev paths within budget (gap
+        ladders can leave any fixed band for less than these budgets),
+        and a banded CIGAR over budget may shadow an in-band optimum under
+        it — both retry exact-capped on the host, matching the native
+        route's (and the reference's) semantics. (The former shortcut
+        "scorecap proves over-budget" missed 122 of 242 LPA
+        inversions.)"""
+        from ..native import WfaMemoryBudget, wfa_align_batch_native
+
+        rev_got = self.solver.solve(rev_jobs, certify=False,
+                                    max_scores=budgets)
+        fb = [k for k, rops in enumerate(rev_got)
+              if rops is None or score_cigar(rops, self.p) > budgets[k]]
+        if not fb:
+            return rev_got
+        got = None
+        try:
+            solved = wfa_align_batch_native(
+                [rev_jobs[k] for k in fb], self.p,
+                max_scores=[budgets[k] for k in fb])
+            if solved is not None:
+                got = [ops for _, ops in solved]
+        except WfaMemoryBudget:   # pragma: no cover - giant piece
+            got = None
+        fb_args = [(rev_jobs[k][0], rev_jobs[k][1], self.p,
+                    budgets[k]) for k in fb]
+        if got is None and self.threads > 1 and len(fb) >= 8:
+            from ..utils.hostpool import get_pool
+
+            pool = get_pool(self.threads)
+            if pool is not None:
+                got = pool.starmap(
+                    _rev_try_host, fb_args,
+                    chunksize=max(1, len(fb) // (4 * self.threads)))
+        if got is None:
+            got = [_rev_try_host(*a) for a in fb_args]
+        for k, rops in zip(fb, got):
+            rev_got[k] = rops
+        return rev_got

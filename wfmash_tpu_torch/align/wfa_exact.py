@@ -27,7 +27,6 @@ call; nothing is caught and carried on.
 
 from __future__ import annotations
 
-import os
 import sys
 from dataclasses import dataclass
 
@@ -87,7 +86,7 @@ class ExactWfaEngine:
         # injected by SegmentedEngine so both use one solver.
         self.seg_solver = seg_solver
         self.seg_min_batch = 4
-        # opt-in (set by SegmentedEngine to its banded_pieces policy):
+        # opt-in (SegmentedEngine sets it, as it takes banded pieces):
         # accept banded/diagonal leaf results instead of host WFA for
         # leaves the segment tiers cannot certify. Default False: this
         # engine's standalone contract is exactness.
@@ -290,11 +289,6 @@ class ExactWfaEngine:
 
         rest_entries = pending
         with perf.span("align.host_leaf"):
-            leaf_log = os.environ.get("WFMASH_TPU_LEAF_LOG")
-            if leaf_log and rest_entries:
-                with open(leaf_log, "a") as fh:
-                    for (_i, _o, q, t, ef) in rest_entries:
-                        fh.write(f"{len(q)}\t{len(t)}\t{ef}\n")
             done_pool = False
             if self.threads > 1 and len(rest_entries) >= 8:
                 from ..utils.hostpool import get_pool

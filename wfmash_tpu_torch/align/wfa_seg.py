@@ -37,7 +37,6 @@ Two deliberate differences from the TPU kernel, both outside the PAF:
 from __future__ import annotations
 
 import ctypes
-import os
 import threading
 
 import numpy as np
@@ -826,26 +825,31 @@ class TieredSegmentSolver:
         res: list = [None] * len(jobs)
         st: list = [("envelope", 0)] * len(jobs)
         unc_all: list = [None] * len(jobs)
-        pending = list(range(len(jobs)))
-        for tier in self.tiers:
-            if not pending:
-                break
-            idx = [i for i in pending
-                   if tier.accepts(len(jobs[i][0]), len(jobs[i][1]),
-                                   _job_parts(jobs[i])[2])
-                   or not jobs[i][0] or not jobs[i][1]]
-            if idx:
-                refuted = self._run_tier(tier, idx, jobs, certify,
-                                         max_scores, res, st, unc_all)
-                pending = [i for i in pending
-                           if res[i] is None and i not in refuted]
-            else:
-                pending = [i for i in pending if res[i] is None]
+        self._cascade(self.tiers, list(range(len(jobs))), jobs, certify,
+                      max_scores, res, st, unc_all, take_empty=True)
         if status is not None:
             status[:] = st
         if uncertified is not None:
             uncertified[:] = unc_all
         return res
+
+    def _cascade(self, tiers, pending, jobs, certify, max_scores, res, st,
+                 unc_all, take_empty):
+        """Runs the pending job indices through tiers in turn: each tier
+        takes those its envelope holds (and, with take_empty, the jobs
+        with an empty side), and a job leaves once a tier solves it or
+        proves its score over its cap."""
+        for tier in tiers:
+            if not pending:
+                break
+            idx = [i for i in pending
+                   if tier.accepts(len(jobs[i][0]), len(jobs[i][1]),
+                                   _job_parts(jobs[i])[2])
+                   or (take_empty and (not jobs[i][0] or not jobs[i][1]))]
+            refuted = (self._run_tier(tier, idx, jobs, certify, max_scores,
+                                      res, st, unc_all) if idx else ())
+            pending = [i for i in pending
+                       if res[i] is None and i not in refuted]
 
     def _run_tier(self, tier, idx, jobs, certify, max_scores, res, st,
                   unc_all):
@@ -916,9 +920,9 @@ class _StreamSolve:
         CH = t1.max_call
         taken = 0
         elig: list = []     # t1-eligible, awaiting launch
-        # a few chunks in flight: chunk N+1's upload and compute overlap
+        # three chunks in flight: chunk N+1's upload and compute overlap
         # chunk N's readback
-        depth = max(1, int(os.environ.get("WFMASH_TPU_SEG_INFLIGHT", "3")))
+        depth = 3
         inflight: list = []
         st_str: dict = {}   # raw string statuses from _collect_chunk
         # align.device: from the first launch to the last collect (its
@@ -965,20 +969,9 @@ class _StreamSolve:
         if device_span is not None:
             device_span.__exit__(None, None, None)
         # cascade the remainder through the deeper tiers (pooled)
-        pending = [k for k in range(len(self.jobs))
-                   if self.res[k] is None and k not in self.refuted]
-        for tier in self.solver.tiers[1:]:
-            if not pending:
-                break
-            idx = [i for i in pending
-                   if tier.accepts(len(self.jobs[i][0]),
-                                   len(self.jobs[i][1]),
-                                   _job_parts(self.jobs[i])[2])]
-            if idx:
-                refuted = self.solver._run_tier(
-                    tier, idx, self.jobs, self.certify, self.max_scores,
-                    self.res, self.st, self.unc)
-                pending = [i for i in pending
-                           if self.res[i] is None and i not in refuted]
-            else:
-                pending = [i for i in pending if self.res[i] is None]
+        self.solver._cascade(
+            self.solver.tiers[1:],
+            [k for k in range(len(self.jobs))
+             if self.res[k] is None and k not in self.refuted],
+            self.jobs, self.certify, self.max_scores, self.res, self.st,
+            self.unc, take_empty=False)
