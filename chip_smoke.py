@@ -2,7 +2,7 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. the card's name and power limit; a CUDA device is required;
-2. build the two CUDA kernels (nvcc) and the five native host libraries
+2. build the two CUDA kernels (nvcc) and the six native host libraries
    (g++), all started together;
 3. per segment tier, one full chunk of generated jobs packed by the port's
    pack_chunk: the segment kernel and its plain PyTorch version (on the
@@ -280,7 +280,7 @@ def spec_jobs(rng):
 
 
 def build_phase():
-    """Both nvcc builds and the five g++ builds, all started together."""
+    """Both nvcc builds and the six g++ builds, all started together."""
     from wfmash_tpu_torch import _build, native
     from wfmash_tpu_torch.align import wfa_seg, wfa_sweep
 
@@ -292,7 +292,8 @@ def build_phase():
     builds = dict(seg_wfa=wfa_seg._lib, sweep_wfa=wfa_sweep._lib,
                   winnow=native.get_lib, l1l2=native.get_l1l2_lib,
                   anchors=native.get_anchors_lib, wfa=native.get_wfa_lib,
-                  segsolve=native.get_segsolve_lib)
+                  segsolve=native.get_segsolve_lib,
+                  tierpack=native.get_tierpack_lib)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = {k: pool.submit(timed, fn) for k, fn in builds.items()}

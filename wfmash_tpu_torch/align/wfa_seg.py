@@ -20,8 +20,10 @@ I/O contract as the TPU kernel:
   vectorised over problems and diagonals level by level.
 * `SegmentSolver`, `TieredSegmentSolver` and `_StreamSolve` are the
   reference's numpy host side (envelopes, certificates, tier cascade,
-  streaming) with the launch replaced; given a parallel.mesh.Mesh, a tier
-  splits each chunk over its devices (`_run_seg_sharded`).
+  streaming) with the launch replaced and each chunk packed in one
+  native call (native/tierpack.cpp; `pack_chunk_py` is its spec); given
+  a parallel.mesh.Mesh, a tier splits each chunk over its devices
+  (`_run_seg_sharded`).
 
 Two deliberate differences from the TPU kernel, both outside the PAF:
 
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..native import pack_tier_chunk_native
 from ..utils import perf
 from .wfa_np import Penalties
 
@@ -526,6 +529,10 @@ class SegmentSolver:
         self.maxr = 2 * smax + 128
         self.groups = groups
         self.max_call = groups * PB
+        # gap_cost(0..K/2), the certificate bounds' one spelling for the
+        # native pack (a margin never exceeds K/2)
+        self.gap_table = np.array(
+            [penalties.gap_cost(i) for i in range(K // 2 + 1)], np.int64)
         # optional parallel.mesh.Mesh: a chunk's rows split over the
         # devices of its first axis, as the reference shards a tier only
         # when that axis has more than one device and divides `groups`
@@ -637,7 +644,38 @@ class SegmentSolver:
         buffer: query nibbles | target nibbles | 16 little-endian int32
         params per row (the TPU package's chunk layout, byte for byte).
         Returns (buf, meta); buf is None and meta["give_up"] is set when
-        the chunk holds more than 14 distinct symbols."""
+        the chunk holds more than 14 distinct symbols.
+
+        One pass gathers each job's lengths, ends-free spans and cap; one
+        native call (native/tierpack.cpp, which releases the GIL) does
+        the rest. pack_chunk_py is its spec and the fallback."""
+        qparts: list = []
+        tparts: list = []
+        cols: list = []
+        for i in idxs:
+            q, t, ef = _job_parts(jobs[i])
+            cap = None if max_scores is None else max_scores[i]
+            qparts.append(q)
+            tparts.append(t)
+            cols.append((len(q), len(t), *(
+                (0, 0, 0, 0) if ef is None else
+                (ef.target_begin, ef.query_begin, ef.target_end,
+                 ef.query_end)), 0 if cap is None else int(cap)))
+        got = pack_tier_chunk_native(
+            b"".join(qparts), b"".join(tparts),
+            np.array(cols, np.int64).reshape(-1, 7), self.groups * self.PB,
+            self.lseg, self.K, self.smax, _SYM_LUT, self.gap_table)
+        if got is NotImplemented:
+            return self.pack_chunk_py(idxs, jobs, max_scores)
+        perf.add("align.tier.pack_native", 1)
+        if got is None:
+            return None, dict(idxs=idxs, give_up=True)
+        buf, cert_b, cert_always = got
+        return buf, dict(idxs=idxs, cert_b=cert_b, cert_always=cert_always)
+
+    def pack_chunk_py(self, idxs, jobs, max_scores):
+        """pack_chunk in numpy: the native pack's spec (tested byte for
+        byte) and its fallback where the library cannot be built."""
         L = self.lseg
         B = self.groups * self.PB
         nj = len(idxs)

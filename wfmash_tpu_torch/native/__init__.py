@@ -1043,3 +1043,78 @@ def wfa_align_ops_native(query: bytes, target: bytes, p, ends_free=None,
         (vals >> 8).tolist(),
         (vals & 0xFF).astype(np.uint8).tobytes().decode("latin-1")))
     return int(score.value), ops
+
+
+# ---------------------------------------------------------------------------
+# Tier chunk packing (tierpack.cpp) — byte-identical to align/wfa_seg.py's
+# SegmentSolver.pack_chunk_py (tested)
+# ---------------------------------------------------------------------------
+
+_SRC6 = _DIR / "tierpack.cpp"
+_LIB6 = _DIR / f"_tierpack{_SAN}.so"
+_lib6 = None
+_tried6 = False
+
+
+def get_tierpack_lib():
+    global _lib6, _tried6
+    if _lib6 is not None or _tried6:
+        return _lib6
+    _tried6 = True
+    if not _LIB6.exists() or _LIB6.stat().st_mtime < _SRC6.stat().st_mtime:
+        try:
+            _gpp_build(_SRC6, _LIB6)
+        except (subprocess.CalledProcessError, FileNotFoundError) as e:
+            print(f"[wfmash-tpu] native tierpack build failed ({e}); "
+                  "using Python fallback", file=sys.stderr)
+            return None
+    try:
+        lib = ctypes.CDLL(str(_LIB6))
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.pack_tier_chunk.restype = i64
+        lib.pack_tier_chunk.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, vp, i64, i64, i64, i64, i64,
+            vp, vp, vp, vp, vp]
+        _lib6 = lib
+    except OSError:
+        _lib6 = None
+    return _lib6
+
+
+def pack_tier_chunk_native(qcat: bytes, tcat: bytes, jobs: np.ndarray,
+                           B: int, L: int, K: int, smax: int,
+                           sym_lut: np.ndarray, gap: np.ndarray):
+    """A tier chunk's fused upload buffer in ONE native call, which
+    releases the GIL (tierpack.cpp). jobs: (nj, 7) int64 rows (m, n, tb,
+    qb, te, qe, cap; 0 for no span and no cap); qcat/tcat: the jobs'
+    sequences joined in order; gap: gap_cost(0..K/2) int64. Returns
+    (buf (B, L + 64) u8, cert_b (B) i64, cert_always (B) bool), None when
+    the chunk gives up (more than 14 distinct bytes), or NotImplemented
+    when the lib is unavailable or a job lies outside what it packs
+    (caller falls back to the Python spec)."""
+    lib = get_tierpack_lib()
+    if lib is None:
+        return NotImplemented
+    jobs = np.ascontiguousarray(jobs, np.int64)
+    lut = np.ascontiguousarray(sym_lut, np.uint8)
+    gap = np.ascontiguousarray(gap, np.int64)
+    if (jobs.ndim != 2 or jobs.shape[1] != 7 or len(jobs) > B
+            or (jobs[:, :2] < 0).any()
+            or len(qcat) != jobs[:, 0].sum()
+            or len(tcat) != jobs[:, 1].sum()
+            or lut.shape != (256,) or gap.shape != (K // 2 + 1,)
+            or L <= 0 or L % 2):
+        raise ValueError("pack_tier_chunk_native: inconsistent chunk "
+                         f"(jobs {jobs.shape}, B={B}, L={L}, K={K})")
+    buf = np.empty((B, L + 64), np.uint8)
+    cert_b = np.empty(B, np.int64)
+    cert_always = np.empty(B, bool)
+    r = lib.pack_tier_chunk(
+        qcat, tcat, jobs.ctypes.data, len(jobs), B, L, K, smax,
+        lut.ctypes.data, gap.ctypes.data, buf.ctypes.data,
+        cert_b.ctypes.data, cert_always.ctypes.data)
+    if r == 1:
+        return None
+    if r != 0:
+        return NotImplemented
+    return buf, cert_b, cert_always
